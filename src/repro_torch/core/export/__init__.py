@@ -1,0 +1,23 @@
+"""Report export (port of ``repro.core.export``): schema-v9 JSON."""
+from __future__ import annotations
+
+import json
+
+from .serialize import SCHEMA, report_from_dict, report_to_dict
+
+
+def export_json(report, path: str) -> str:
+    """Write ``report`` as schema-v9 JSON; returns the path."""
+    with open(path, "w") as f:
+        json.dump(report_to_dict(report), f, indent=1)
+    return path
+
+
+def load_json(path: str):
+    """Read a report file (schema v1 ... v9) back into a ``CommReport``."""
+    with open(path) as f:
+        return report_from_dict(json.load(f))
+
+
+__all__ = ["SCHEMA", "export_json", "load_json", "report_from_dict",
+           "report_to_dict"]

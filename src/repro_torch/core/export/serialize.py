@@ -1,0 +1,248 @@
+"""Lossless CommReport <-> plain-dict serialization (port of
+``repro.core.export.serialize``).
+
+Writes schema ``repro.comm_report.v9`` in the reference's spelling, so the
+reference's ``report_from_dict`` loads the port's files, and loads every
+schema the reference accepts (v1 ... v9).  The optional ``hlo_gz``,
+``schedules`` and ``lint`` sections are not written (the port has no
+compiled module, and its schedule and lint exports wait for later slices);
+the derived ``links`` / ``overlap`` sections likewise wait for the port's
+link slice.  All of them are derived or optional, so the reference loads
+the port's files without them, and the port ignores them when it loads the
+reference's.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from ..events import (CollectiveOp, HostTransfer, PhaseRecord, Shape,
+                      TraceEvent)
+from ..topology import HardwareSpec, MeshTopology
+
+SCHEMA = "repro.comm_report.v9"
+ACCEPTED_SCHEMAS = tuple(f"repro.comm_report.v{i}" for i in range(9, 0, -1))
+
+
+# ---------------------------------------------------------------------------
+# leaf types
+# ---------------------------------------------------------------------------
+def shape_to_dict(s: Shape) -> dict:
+    return {"dtype": s.dtype, "dims": list(s.dims)}
+
+
+def shape_from_dict(d: dict) -> Shape:
+    return Shape(dtype=d["dtype"], dims=tuple(d["dims"]))
+
+
+def op_to_dict(op: CollectiveOp) -> dict:
+    d = {
+        "kind": op.kind,
+        "name": op.name,
+        "result_shapes": [shape_to_dict(s) for s in op.result_shapes],
+        # legacy spelling kept for external consumers of dump_report files
+        "shapes": [repr(s) for s in op.result_shapes],
+        "replica_groups": [list(g) for g in op.replica_groups],
+        "channel_id": op.channel_id,
+        "dimensions": list(op.dimensions),
+        "source_target_pairs": [list(p) for p in op.source_target_pairs],
+        "op_name": op.op_name,
+        "weight": op.weight,
+        "phase": op.phase,
+        "operand_names": list(op.operand_names),
+        "use_global_device_ids": op.use_global_device_ids,
+        "payload_bytes": op.payload_bytes,
+        "group_size": op.group_size,
+        "num_groups": op.num_groups,
+    }
+    # schema v8: irregular ops only -- regular ops keep the v7 spelling
+    if op.bytes_per_rank_vec is not None:
+        d["bytes_per_rank_vec"] = [float(x) for x in op.bytes_per_rank_vec]
+    # schema v9: measured (imported-trace) ops only -- modeled ops keep
+    # the v8 spelling, so all-modeled files stay byte-identical
+    if op.measured_s is not None:
+        d["measured_s"] = float(op.measured_s)
+    return d
+
+
+def op_from_dict(d: dict) -> CollectiveOp:
+    return CollectiveOp(
+        kind=d["kind"],
+        name=d["name"],
+        result_shapes=[shape_from_dict(s) for s in d["result_shapes"]],
+        replica_groups=[list(g) for g in d["replica_groups"]],
+        channel_id=d.get("channel_id"),
+        dimensions=tuple(d.get("dimensions", ())),
+        source_target_pairs=[tuple(p) for p in d.get("source_target_pairs", [])],
+        op_name=d.get("op_name", ""),
+        weight=float(d.get("weight", 1.0)),
+        phase=d.get("phase", ""),
+        operand_names=list(d.get("operand_names", [])),
+        use_global_device_ids=bool(d.get("use_global_device_ids", False)),
+        bytes_per_rank_vec=(list(d["bytes_per_rank_vec"])
+                            if d.get("bytes_per_rank_vec") is not None
+                            else None),
+        measured_s=(float(d["measured_s"])
+                    if d.get("measured_s") is not None else None),
+    )
+
+
+def event_to_dict(e: TraceEvent) -> dict:
+    return {
+        "primitive": e.primitive,
+        "axis_name": e.axis_name,
+        "arg_shapes": [shape_to_dict(s) for s in e.arg_shapes],
+        "axis_size": e.axis_size,
+        "call_site": e.call_site,
+        "phase": e.phase,
+    }
+
+
+def event_from_dict(d: dict) -> TraceEvent:
+    return TraceEvent(
+        primitive=d["primitive"],
+        axis_name=d["axis_name"],
+        arg_shapes=[shape_from_dict(s) for s in d["arg_shapes"]],
+        axis_size=d.get("axis_size"),
+        call_site=d.get("call_site", ""),
+        phase=d.get("phase", ""),
+    )
+
+
+def transfer_to_dict(t: HostTransfer) -> dict:
+    return {"direction": t.direction, "device": t.device,
+            "nbytes": t.nbytes, "label": t.label, "phase": t.phase}
+
+
+def transfer_from_dict(d: dict) -> HostTransfer:
+    return HostTransfer(direction=d["direction"], device=d["device"],
+                        nbytes=d["nbytes"], label=d.get("label", ""),
+                        phase=d.get("phase", ""))
+
+
+def phase_to_dict(p: PhaseRecord) -> dict:
+    return {"name": p.name, "num_captures": p.num_captures,
+            "trace_seconds": p.trace_seconds,
+            "compile_seconds": p.compile_seconds}
+
+
+def phase_from_dict(d: dict) -> PhaseRecord:
+    return PhaseRecord(name=d["name"],
+                       num_captures=int(d.get("num_captures", 0)),
+                       trace_seconds=float(d.get("trace_seconds", 0.0)),
+                       compile_seconds=float(d.get("compile_seconds", 0.0)))
+
+
+def topo_to_dict(t: Optional[MeshTopology]) -> Optional[dict]:
+    if t is None:
+        return None
+    return {
+        "axis_names": list(t.axis_names),
+        "axis_sizes": list(t.axis_sizes),
+        "dcn_axes": list(t.dcn_axes),
+        "hw": dataclasses.asdict(t.hw),
+    }
+
+
+def topo_from_dict(d: Optional[dict]) -> Optional[MeshTopology]:
+    if d is None:
+        return None
+    return MeshTopology(
+        axis_names=tuple(d["axis_names"]),
+        axis_sizes=tuple(d["axis_sizes"]),
+        hw=HardwareSpec(**d["hw"]),
+        dcn_axes=tuple(d["dcn_axes"]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# matrices: dense nested lists
+# ---------------------------------------------------------------------------
+def matrix_to_jsonable(mat) -> list:
+    return np.asarray(mat).tolist()
+
+
+def matrix_from_jsonable(j) -> np.ndarray:
+    """Dense nested list -> float64 array.  The COO dict form (schema v6,
+    fleet-scale reports) waits for the port's sparse slice."""
+    if isinstance(j, dict):
+        raise NotImplementedError(
+            "sparse (COO) report matrices wait for the port's sparse-engine "
+            "slice")
+    return np.asarray(j, dtype=np.float64)
+
+
+# ---------------------------------------------------------------------------
+# whole-report round-trip
+# ---------------------------------------------------------------------------
+def _jsonable_cost(cost: dict) -> dict:
+    return {k: float(v) for k, v in (cost or {}).items()
+            if isinstance(v, (int, float))}
+
+
+def report_to_dict(report) -> dict:
+    """``CommReport`` -> JSON-serializable dict (schema ``v9``)."""
+    out = {"schema": SCHEMA}
+    if report.trace_meta:
+        out["trace_meta"] = dict(report.trace_meta)
+    out.update({
+        "phases": [phase_to_dict(p) for p in report.phases],
+        "name": report.name,
+        "num_devices": report.num_devices,
+        "algorithm": report.algorithm,
+        "summary": report.compiled_summary,
+        "traced_summary": report.traced_summary,
+        "ops": [op_to_dict(op) for op in report.compiled_ops],
+        "traced": [event_to_dict(e) for e in report.traced],
+        "matrix": matrix_to_jsonable(report.matrix),
+        "per_primitive": {k: matrix_to_jsonable(m)
+                          for k, m in report.per_primitive.items()},
+        "cost": _jsonable_cost(report.cost),
+        "memory_stats": report.memory_stats,
+        "trace_seconds": report.trace_seconds,
+        "compile_seconds": report.compile_seconds,
+        "topo": topo_to_dict(report.topo),
+        "host_transfers": [transfer_to_dict(t) for t in report.host_transfers],
+        "meta": dict(report.meta or {}),
+    })
+    return out
+
+
+def report_from_dict(d: dict):
+    """Dict (schema ``v1`` ... ``v9``) -> ``CommReport``.
+
+    Derived sections (links, overlap, schedules) are not restored: the
+    report's views recompute what the port supports from ``ops`` +
+    ``topo``.  ``hlo_gz`` and ``lint`` are ignored.
+    """
+    from ..monitor import CommReport  # deferred: monitor imports this module
+
+    schema = d.get("schema")
+    if schema is not None and schema not in ACCEPTED_SCHEMAS:
+        raise ValueError(
+            f"unknown report schema {schema!r}; accepted: {ACCEPTED_SCHEMAS}")
+    return CommReport(
+        name=d["name"],
+        num_devices=int(d["num_devices"]),
+        traced=[event_from_dict(e) for e in d.get("traced", [])],
+        compiled_ops=[op_from_dict(o) for o in d.get("ops", [])],
+        traced_summary=d.get("traced_summary", {}),
+        compiled_summary=d.get("summary", {}),
+        matrix=matrix_from_jsonable(d["matrix"]),
+        per_primitive={k: matrix_from_jsonable(m)
+                       for k, m in d.get("per_primitive", {}).items()},
+        cost=d.get("cost", {}),
+        memory_stats=d.get("memory_stats"),
+        trace_seconds=float(d.get("trace_seconds", 0.0)),
+        compile_seconds=float(d.get("compile_seconds", 0.0)),
+        topo=topo_from_dict(d.get("topo")),
+        host_transfers=[transfer_from_dict(t)
+                        for t in d.get("host_transfers", [])],
+        algorithm=d.get("algorithm", "ring"),
+        meta=dict(d.get("meta", {})),
+        phases=[phase_from_dict(p) for p in d.get("phases", [])],
+        trace_meta=(dict(d["trace_meta"])
+                    if d.get("trace_meta") else None),
+    )

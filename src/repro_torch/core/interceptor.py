@@ -1,0 +1,191 @@
+"""Collective interception -- the LD_PRELOAD analogue for PyTorch (port of
+``repro.core.interceptor``).
+
+The paper's ComScribe preloads a shim over ``ncclAllReduce`` & friends.  A
+PyTorch program reaches its process group through the ``c10d`` operators:
+the functional ``_c10d_functional.*`` ops (what DTensor and
+``torch.distributed._functional_collectives`` issue), the in-place
+``c10d.*`` ops (what ``torch.distributed.all_reduce`` & co. issue), and
+DTensor's own ``_dtensor.shard_dim_alltoall`` (its shard-to-shard
+redistribution on a non-CPU mesh, which reaches no ``c10d`` op under
+``FakeTensorMode``).
+:class:`CollectiveInterceptor` is a ``TorchDispatchMode`` that records each
+of them as it runs: its kind, per-device result shapes and dtype, and the
+replica groups of the mesh dimension it ran on.
+
+When a DTensor is involved the mode steps aside (``NotImplemented``) so
+DTensor first lowers the op to local ops and collectives, which then reach
+the mode -- so resharding the program never asked for is recorded too, the
+way the reference reads GSPMD's resharding from the compiled HLO.
+``wait_tensor`` is not a collective and is not recorded.
+"""
+from __future__ import annotations
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from .events import CollectiveOp, Shape, TraceEvent, torch_shape
+
+# op name (overload packet) -> (HLO kind, NCCL-style name)
+_FUNCTIONAL = {
+    "all_reduce": ("all-reduce", "AllReduce"),
+    "all_reduce_": ("all-reduce", "AllReduce"),
+    "all_reduce_coalesced": ("all-reduce", "AllReduce"),
+    "all_reduce_coalesced_": ("all-reduce", "AllReduce"),
+    "all_gather_into_tensor": ("all-gather", "AllGather"),
+    "all_gather_into_tensor_out": ("all-gather", "AllGather"),
+    "all_gather_into_tensor_coalesced": ("all-gather", "AllGather"),
+    "reduce_scatter_tensor": ("reduce-scatter", "ReduceScatter"),
+    "reduce_scatter_tensor_out": ("reduce-scatter", "ReduceScatter"),
+    "reduce_scatter_tensor_coalesced": ("reduce-scatter", "ReduceScatter"),
+    "all_to_all_single": ("all-to-all", "AllToAll"),
+    "broadcast": ("collective-broadcast", "Broadcast"),
+    "broadcast_": ("collective-broadcast", "Broadcast"),
+}
+_C10D = {
+    "allreduce_": ("all-reduce", "AllReduce"),
+    "allreduce_coalesced_": ("all-reduce", "AllReduce"),
+    "allgather_": ("all-gather", "AllGather"),
+    "_allgather_base_": ("all-gather", "AllGather"),
+    "allgather_into_tensor_coalesced_": ("all-gather", "AllGather"),
+    "reduce_scatter_": ("reduce-scatter", "ReduceScatter"),
+    "_reduce_scatter_base_": ("reduce-scatter", "ReduceScatter"),
+    "reduce_scatter_tensor_coalesced_": ("reduce-scatter", "ReduceScatter"),
+    "alltoall_": ("all-to-all", "AllToAll"),
+    "alltoall_base_": ("all-to-all", "AllToAll"),
+    "broadcast_": ("collective-broadcast", "Broadcast"),
+}
+_DTENSOR = {
+    "shard_dim_alltoall": ("all-to-all", "AllToAll"),
+}
+
+
+def traced_summary(events) -> dict:
+    """Paper Table-2 style logical summary over trace events, keyed by the
+    NCCL-style name (the reference's spelling)."""
+    table: dict[str, dict] = {}
+    for ev in events:
+        name = getattr(ev, "nccl_name", ev.primitive)
+        row = table.setdefault(name, {"calls": 0, "payload_bytes": 0})
+        row["calls"] += 1
+        row["payload_bytes"] += ev.payload_bytes
+    return table
+
+
+def _tensors(x) -> list[torch.Tensor]:
+    """Tensors in an argument or result, list operands unpacked (the
+    in-place ``c10d`` ops carry theirs in lists, nested for allgather)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for item in x for t in _tensors(item)]
+    return []
+
+
+def _group_name(func, args, kwargs) -> str:
+    """The process group's name: a string operand of the functional ops,
+    a ``ProcessGroup`` script object of the in-place ones."""
+    from torch.distributed.distributed_c10d import ProcessGroup
+
+    for a in list(args) + list((kwargs or {}).values()):
+        if isinstance(a, ProcessGroup):
+            return a.group_name
+        if isinstance(a, torch.ScriptObject):
+            pg = ProcessGroup.unbox(a)
+            return pg.group_name
+    schema_names = [arg.name for arg in func._schema.arguments]
+    if "group_name" in schema_names:
+        i = schema_names.index("group_name")
+        return args[i] if i < len(args) else kwargs["group_name"]
+    raise ValueError(f"{func}: no process group operand")
+
+
+class CollectiveInterceptor(TorchDispatchMode):
+    """Scoped recorder of every collective that reaches a process group.
+
+    ``mesh`` (a ``DeviceMesh``) names the dimension each group belongs to
+    and gives all of that dimension's groups as the op's replica groups
+    (the program runs as one rank, but every rank issues the same op).  A
+    group outside the mesh dims is recorded with its own ranks.
+    """
+
+    def __init__(self, mesh=None):
+        super().__init__()
+        self.events: list[TraceEvent] = []
+        self.ops: list[CollectiveOp] = []
+        self._groups: dict[str, tuple[str, list[list[int]]]] = {}
+        if mesh is not None:
+            from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+            with unset_fake_temporarily():   # the mesh's rank table is real
+                for dim, name in enumerate(mesh.mesh_dim_names):
+                    rings = (mesh.mesh.movedim(dim, -1)
+                             .reshape(-1, mesh.shape[dim]).tolist())
+                    self._groups[mesh.get_group(name).group_name] = (
+                        name, rings)
+
+    def _groups_of(self, group_name: str) -> tuple[str, list[list[int]]]:
+        if group_name not in self._groups:
+            import torch.distributed as dist
+            from torch.distributed.distributed_c10d import \
+                _resolve_process_group
+
+            pg = _resolve_process_group(group_name)
+            self._groups[group_name] = (
+                group_name, [sorted(dist.get_process_group_ranks(pg))])
+        return self._groups[group_name]
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented      # let DTensor lower to local ops
+        out = func(*args, **kwargs)
+        ns = func.namespace
+        name = func._overloadpacket.__name__
+        kind = {"_c10d_functional": _FUNCTIONAL, "c10d": _C10D,
+                "_dtensor": _DTENSOR}.get(ns, {}).get(name)
+        if kind is not None:
+            self._record(func, kind, args, kwargs, out)
+        return out
+
+    def _record(self, func, kind, args, kwargs, out) -> None:
+        hlo_kind, nccl = kind
+        axis, groups = self._groups_of(_group_name(func, args, kwargs))
+        name = func._overloadpacket.__name__
+        if func.namespace in ("_c10d_functional", "_dtensor"):
+            inputs = _tensors(args[0])
+            results = [torch_shape(t) for t in _tensors(out)]
+        elif name in ("allgather_", "alltoall_"):
+            # outputs: one tensor per peer (a list per input for allgather_);
+            # the per-device result is their concatenation
+            inputs = _tensors(args[1])
+            per_input = (args[0] if name == "allgather_" else [args[0]])
+            results = [_concat_shape(_tensors(outs)) for outs in per_input]
+        elif name in ("allreduce_", "allreduce_coalesced_", "broadcast_"):
+            inputs = _tensors(args[0])          # in place
+            results = [torch_shape(t) for t in inputs]
+        else:                                   # (output(s), input(s), ...)
+            inputs = _tensors(args[1])
+            results = [torch_shape(t) for t in _tensors(args[0])]
+        ev = TraceEvent(primitive=name, axis_name=axis,
+                        arg_shapes=[torch_shape(t) for t in inputs],
+                        axis_size=len(groups[0]))
+        ev.nccl_name = nccl
+        self.events.append(ev)
+        self.ops.append(CollectiveOp(
+            kind=hlo_kind,
+            name=f"{name}.{len(self.ops)}",
+            result_shapes=results,
+            replica_groups=[list(g) for g in groups],
+            op_name=f"{func.namespace}.{name}[{axis}]"))
+
+
+def _concat_shape(parts: list[torch.Tensor]) -> Shape:
+    """Shape of ``torch.cat(parts)`` without building it."""
+    first = torch_shape(parts[0])
+    return Shape(dtype=first.dtype,
+                 dims=(sum(int(t.shape[0]) for t in parts),) + first.dims[1:])

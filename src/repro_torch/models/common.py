@@ -1,0 +1,173 @@
+"""Model substrate foundations (port of ``repro.models.common``): configs,
+declarative parameter specs and the RMSNorm every block calls.
+
+Models declare their parameters as a nested dict of :class:`Spec` (shape +
+logical sharding axes + initializer).  From that declaration come
+``init_params`` (materialized tensors from a ``torch.Generator``),
+``param_shapes`` (``torch.empty`` stand-ins: under ``FakeTensorMode`` they
+allocate nothing) and ``param_axes`` (consumed by
+:class:`~repro_torch.parallel.Sharder`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                      # dense | moe | ssm | vlm | audio | hybrid
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                # 0 -> d_model // n_heads
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # attention variants
+    qk_norm: bool = False
+    attn_window: int = 0             # 0 = full causal; >0 = sliding window
+    rope_theta: float = 10000.0
+    # layer pattern, cycled over depth: "attn" | "mlstm" | "slstm" | "rec"
+    block_pattern: tuple[str, ...] = ("attn",)
+    # modality frontend: "tokens" (LM) | "embeddings" (stubbed vlm/audio)
+    input_mode: str = "tokens"
+    tie_embeddings: bool = False
+    # recurrent blocks
+    conv_width: int = 4              # RG-LRU temporal conv width
+    d_rnn: int = 0                   # RG-LRU recurrence width (0 -> d_model)
+    mlstm_chunk: int = 256           # chunkwise-parallel mLSTM chunk length
+    norm_eps: float = 1e-6
+    # dtypes (strings to keep config hashable/serializable)
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    # long_500k eligibility (sub-quadratic attention / recurrent state)
+    subquadratic: bool = False
+    # optimizer preset for this scale ("adamw" | "adafactor")
+    optimizer: str = "adamw"
+    # optimizer state dtype (large models use bf16 moments to fit HBM)
+    opt_state_dtype: str = "float32"
+
+    @property
+    def dh(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+# ---------------------------------------------------------------------------
+# declarative parameter specs
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Spec:
+    """One parameter leaf: shape + logical axes + initializer."""
+
+    shape: tuple[int, ...]
+    axes: tuple[Optional[str], ...]  # logical axis name per dim (None = replicated)
+    init: str = "fan_in"             # fan_in | normal | zeros | ones | embed | rglru_a
+    scale: float = 1.0
+    dtype: Optional[str] = None      # None -> model param_dtype
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def _dtype(name: str) -> torch.dtype:
+    return getattr(torch, name)
+
+
+def _leaves(tree, prefix=()):
+    """``(path, leaf)`` pairs in sorted-key order (the reference's pytree
+    flattening order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, tree
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _init_leaf(spec: Spec, gen: torch.Generator, dtype: torch.dtype,
+               device) -> torch.Tensor:
+    shape = spec.shape
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init in ("normal", "embed"):
+        std = spec.scale
+    elif spec.init == "fan_in":
+        # fan-in on the second-to-last dim (stacked leading dims ignored)
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        std = spec.scale / math.sqrt(max(1, fan_in))
+    else:
+        raise ValueError(f"unknown init {spec.init!r}")
+    out = torch.empty(shape, dtype=dtype, device=device)
+    # draw in fp32 one leading slice at a time, so a stacked (L, ...) leaf
+    # never needs an fp32 copy of itself
+    for part in (out if len(shape) >= 3 else (out,)):
+        part.copy_(torch.randn(part.shape, generator=gen, device=device)
+                   .mul_(std))
+    return out
+
+
+def init_params(specs, gen: torch.Generator, param_dtype: str = "float32",
+                device="cuda", dtype: Optional[torch.dtype] = None):
+    """Random parameters from ``gen`` (a ``torch.Generator`` on
+    ``device``); ``dtype`` overrides every leaf's dtype (e.g. bf16 at
+    load).  The values differ from the reference's ``jax.random`` ones:
+    tests hand the reference's weights over with
+    :func:`repro_torch.weights.from_jax_params`."""
+    out: dict = {}
+    for path, spec in _leaves(specs):
+        leaf_dt = dtype or _dtype(spec.dtype or param_dtype)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = _init_leaf(spec, gen, leaf_dt, device)
+    return out
+
+
+def param_shapes(specs, param_dtype: str = "float32", device="cuda",
+                 dtype: Optional[torch.dtype] = None):
+    """``torch.empty`` stand-ins; under ``FakeTensorMode`` nothing is
+    allocated (the analogue of the reference's ``ShapeDtypeStruct``s)."""
+    return _map(specs, lambda s: torch.empty(
+        s.shape, dtype=dtype or _dtype(s.dtype or param_dtype),
+        device=device))
+
+
+def param_axes(specs):
+    return _map(specs, lambda s: s.axes)
+
+
+# ---------------------------------------------------------------------------
+# small numerics shared by every model
+# ---------------------------------------------------------------------------
+def rms_norm(x, w, eps: float = 1e-6, shd=None, axes=None):
+    """RMSNorm through the kernel wrapper (plain version on CPU tensors).
+
+    With a mesh-bound ``shd`` the kernel runs on local shards, ``x`` first
+    laid out by ``axes`` (``None``: as it is) and ``w`` replicated.
+    """
+    if shd is None:
+        return rmsnorm_ops.rmsnorm(x, w, eps)
+    return shd.local(lambda a, b: rmsnorm_ops.rmsnorm(a, b, eps), (x, w),
+                     (axes, (None,) * w.dim()))
