@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # every phase, as a check run drives it
+    python3 chip_smoke.py
 
 Phases, in order; any failure exits non-zero, and no phase catches its own:
 
@@ -13,15 +13,18 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               plain version's time and one PyTorch library call's time;
 3. serve   -- Qwen3-8B at its published width and depth, random weights
               from a seed, cast to bf16 once: 8 requests, prompt 128, 32 new
-              tokens.  Launch counters are zeroed just before and read just
-              after, and must show that prefill went through the attention
-              kernel, decode through the decode kernel and every norm
-              through the RMSNorm kernel.  The first decode step's logits
-              are held against the same step with the plain versions, and
-              torch.profiler shows where one prefill's and four decode
-              steps' device time goes, with the device's idle share;
+              tokens, timed by the serve entry point.  Then one more
+              ``generate`` of the same requests, with the launch counters
+              zeroed just before and read just after: they must show that
+              prefill went through the attention kernel, decode through the
+              decode kernel and every norm through the RMSNorm kernel.
+              The first decode step's logits are held against the same
+              step with the plain versions, and torch.profiler shows where
+              one prefill's and four decode steps' device time goes, with
+              the device's idle share;
 4. monitor -- the two-phase prefill/decode capture of the same model at full
               width on a fake 4x2 mesh, under FakeTensorMode on ``cuda``;
+              its per-phase collective calls must equal a pinned table, and
               the report is saved, reloaded and compared.
 
 Then one JSON line with every kernel's numbers, the card's name and power
@@ -31,7 +34,6 @@ JAX.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import statistics
 import subprocess
@@ -40,7 +42,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-PHASES = ("build", "kernels", "serve", "monitor")
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -212,9 +213,13 @@ def check_kernels() -> dict:
     return results
 
 
-def run_serve(layers: int) -> dict:
-    """Phase 3: the port's serve entry point at full width; returns the
-    launch counts of the main-path run and the serve result."""
+def run_serve() -> tuple[dict, dict]:
+    """Phase 3: the port's serve entry point at full width and depth, then
+    the counted main-path run: one more ``generate`` over the same prompts,
+    with every launch count zeroed just before it and read just after.
+    (``launch.serve`` runs an untimed warm-up before its timed run, so
+    counts taken around it would hold the warm-up's launches too.)
+    Returns the counted run's launch counts and the serve result."""
     from unittest import mock
 
     import torch
@@ -226,39 +231,48 @@ def run_serve(layers: int) -> dict:
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.launch import serve as launch
     from repro_torch.parallel import Sharder
+    from repro_torch.serve import generate
 
-    cfg = launch.model_config(ARCH, layers)
+    cfg = launch.model_config(ARCH)
     L = cfg.n_layers
-    cut = "" if L == 36 else f" (depth cut to {L} of 36 layers)"
-    mods = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
-            "flash_decode": fd_ops}
-    for m in mods.values():
-        m.launches = 0
     res = launch.serve(cfg, batch=BATCH, prompt_len=PROMPT_LEN,
-                       tokens=NEW_TOKENS, seed=0, device="cuda")
-    counts = {name: m.launches for name, m in mods.items()}
-    # the untimed warm-up run (1 prefill + WARMUP_TOKENS - 1 decode steps),
-    # then the timed one (1 prefill + NEW_TOKENS - 1 decode steps)
-    steps = NEW_TOKENS - 1 + launch.WARMUP_TOKENS - 1
-    expect = {"rmsnorm": (2 + steps) * (4 * L + 1),
-              "flash_attention": 2 * L, "flash_decode": steps * L}
-    log(f"[serve] {cfg.name} d{cfg.d_model} {L}L{cut}, {BATCH} requests x "
-        f"prompt {PROMPT_LEN} + {NEW_TOKENS} tokens: prefill "
+                       tokens=NEW_TOKENS, device="cuda")
+    log(f"[serve] {cfg.name} d{cfg.d_model} {L} of 36 layers, {BATCH} "
+        f"requests x prompt {PROMPT_LEN} + {NEW_TOKENS} tokens: prefill "
         f"{res['prefill_ms']:.2f} ms | decode "
         f"{res['decode_ms_per_token']:.2f} ms/token | "
         f"{res['tokens_per_s']:.1f} tok/s | max memory "
         f"{res['max_memory_bytes'] / 2**30:.2f} GiB")
-    log(f"[serve] kernel launches {counts} (expected {expect})")
+
+    model, params, shd = res["model"], res["params"], Sharder()
+    mods = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
+            "flash_decode": fd_ops}
+    for m in mods.values():
+        m.launches = 0
+    toks = generate(model, params, res["prompts"], shd, steps=NEW_TOKENS,
+                    max_len=PROMPT_LEN + NEW_TOKENS)
+    torch.cuda.synchronize()
+    counts = {name: m.launches for name, m in mods.items()}
+    # 1 prefill + NEW_TOKENS - 1 decode steps; per prefill and per decode
+    # step 4 RMSNorm launches a layer (norm1, norm2, q-norm, k-norm) + the
+    # final norm, per prefill L flash-attention launches, per decode step
+    # L flash-decode launches
+    steps = NEW_TOKENS - 1
+    expect = {"rmsnorm": (1 + steps) * (4 * L + 1),
+              "flash_attention": L, "flash_decode": steps * L}
+    log(f"[serve] kernel launches of one prefill + {steps} decode steps "
+        f"{counts} (expected {expect})")
     if counts != expect:
         fail(f"launch counts {counts} != expected {expect}")
-    toks = res["tokens"]
-    if tuple(toks.shape) != (BATCH, NEW_TOKENS) or not bool(
-            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
-        fail(f"bad generated tokens {tuple(toks.shape)}")
-    log(f"[serve] sample tokens {toks[0, :12].tolist()}")
+    for run, t in (("timed", res["tokens"]), ("counted", toks)):
+        if tuple(t.shape) != (BATCH, NEW_TOKENS) or not bool(
+                ((t >= 0) & (t < cfg.vocab_size)).all()):
+            fail(f"bad generated tokens of the {run} run {tuple(t.shape)}")
+    same = (toks == res["tokens"]).float().mean().item()
+    log(f"[serve] sample tokens {toks[0, :12].tolist()}; share equal to the "
+        f"timed run's tokens {same:.3f}")
 
     # first decode step: kernels against the plain versions on the card
-    model, params, shd = res["model"], res["params"], Sharder()
     with torch.inference_mode():
         logits0, cache = model.prefill(params, {"tokens": res["prompts"]},
                                        shd, max_len=PROMPT_LEN + NEW_TOKENS)
@@ -340,12 +354,25 @@ def profile_serve(res, steps: int = 4) -> None:
         window(f"decode x{steps}", decode)
 
 
-def run_monitor(layers: int) -> None:
-    """Phase 4: two-phase capture on a fake 4x2 mesh, saved and reloaded."""
+# The full-width capture's (phase, kind) -> calls on a fake 4x2 ``cuda``
+# mesh.  A ``cuda`` mesh's shard-to-shard redistribution is DTensor's own
+# ``_dtensor.shard_dim_alltoall`` (a CPU mesh issues all-gather + chunk
+# instead): an interceptor that misses it drops every all-to-all here.
+MONITOR_CALLS = {
+    ("prefill", "all-to-all"): 218, ("prefill", "all-gather"): 109,
+    ("prefill", "reduce-scatter"): 181, ("prefill", "all-reduce"): 73,
+    ("decode", "all-to-all"): 218, ("decode", "all-gather"): 109,
+    ("decode", "reduce-scatter"): 145, ("decode", "all-reduce"): 73,
+}
+
+
+def run_monitor() -> None:
+    """Phase 4: two-phase capture on a fake 4x2 mesh, its per-phase
+    collective calls held to :data:`MONITOR_CALLS`, saved and reloaded."""
     from repro_torch.core import CommReport
     from repro_torch.launch import serve as launch
 
-    cfg = launch.model_config(ARCH, layers)
+    cfg = launch.model_config(ARCH)
     t0 = time.perf_counter()
     rep = launch.monitor(cfg, mesh_shape=(4, 2), batch=BATCH,
                          prompt_len=PROMPT_LEN, tokens=NEW_TOKENS,
@@ -355,6 +382,12 @@ def run_monitor(layers: int) -> None:
         f"{time.perf_counter() - t0:.1f} s")
     log(rep.phase_table())
     log(rep.heatmap(phase="decode"))
+    calls = {(ph, kind): row["calls"]
+             for ph, summ in rep.phase_summaries().items()
+             for kind, row in summ.items()}
+    if calls != MONITOR_CALLS:
+        fail(f"per-phase collective calls {calls} != expected "
+             f"{MONITOR_CALLS}")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
     path = out_dir / "chip_smoke_serve_report.json"
@@ -380,18 +413,7 @@ KERNEL_META = {
 }
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
-    ap.add_argument("--layers", type=int, default=36,
-                    help="model depth (36 = published)")
-    args = ap.parse_args(argv)
-    phases = [p for p in args.phases.split(",") if p]
-    for p in phases:
-        if p not in PHASES:
-            fail(f"unknown phase {p!r}")
-
+def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
@@ -411,23 +433,19 @@ def main(argv=None) -> None:
     log(f"[build] {len(build.SOURCES)} CUDA sources built in "
         f"{time.perf_counter() - t0:.1f} s")
 
-    kernels = check_kernels() if "kernels" in phases else {}
-    launches = {}
-    if "serve" in phases:
-        launches, res = run_serve(args.layers)
-        profile_serve(res)
-        del res
-    if "monitor" in phases:
-        run_monitor(args.layers)
+    kernels = check_kernels()
+    launches, res = run_serve()
+    profile_serve(res)
+    del res
+    run_monitor()
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
-         "replaces": KERNEL_META[name][1],
-         "launches": launches.get(name, 0),
+         "replaces": KERNEL_META[name][1], "launches": launches[name],
          **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")}}
-        for name in KERNEL_META if name in kernels]}
+        for name in KERNEL_META]}
     log(json.dumps(line))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

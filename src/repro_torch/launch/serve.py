@@ -5,7 +5,7 @@ communication profile of the same serve step on a fake mesh.
         --batch 8 --prompt-len 128 --tokens 32 --report serve_report.json
 
 It builds the architecture at its published width (``--layers`` cuts the
-depth), with random weights from ``--seed`` cast once to bf16, and serves
+depth), with random weights from seed 0 cast once to bf16, and serves
 ``--batch`` random prompts through the port's kernels on ``--device``
 (default ``cuda``; there is no quiet fallback to the CPU).  Then it captures
 prefill and decode as two phases of a ``MonitorSession`` on a fake
@@ -136,12 +136,11 @@ def main(argv=None):
                     help="monitored fake mesh, data x model")
     ap.add_argument("--report", default="", help="save the report here")
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     cfg = model_config(args.arch, args.layers or None, args.reduced)
     res = serve(cfg, batch=args.batch, prompt_len=args.prompt_len,
-                tokens=args.tokens, seed=args.seed, device=args.device)
+                tokens=args.tokens, device=args.device)
     print(f"[serve] {cfg.name} {cfg.n_layers}L on {args.device}: "
           f"prefill {res['prefill_ms']:.2f} ms, decode "
           f"{res['decode_ms_per_token']:.2f} ms/token, "

@@ -19,10 +19,11 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import TransformerLM
 
 
-def from_jax_params(tree, cfg: ModelConfig, device="cpu",
+def from_jax_params(tree, cfg: ModelConfig, device="cuda",
                     dtype=None) -> dict:
     """Nested dict of numpy arrays -> nested dict of tensors on
-    ``device`` (``dtype``: keep each leaf's own dtype when None)."""
+    ``device`` (the GPU unless the caller passes ``"cpu"``; ``dtype``: keep
+    each leaf's own dtype when None)."""
     specs = TransformerLM(cfg).specs()
 
     def convert(node, spec, path):

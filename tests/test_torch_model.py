@@ -59,7 +59,8 @@ def _setup(variant):
     rcfg, pcfg = _cfgs(variant)
     rmodel, pmodel = ref_build_model(rcfg), build_model(pcfg)
     rparams = rmodel.init(jax.random.PRNGKey(3))
-    pparams = from_jax_params(jax.tree.map(np.asarray, rparams), pcfg)
+    pparams = from_jax_params(jax.tree.map(np.asarray, rparams), pcfg,
+                              device="cpu")
     toks = np.random.default_rng(0).integers(0, rcfg.vocab_size, (B, S),
                                              dtype=np.int32)
     rshd = RefSharder(make_mesh((1, 1), ("data", "model")))
@@ -111,7 +112,7 @@ def test_weights_reject_a_wrong_shape():
         jax.random.PRNGKey(0)))
     tree["layers"]["attn"]["wk"] = tree["layers"]["attn"]["wk"][..., :-1]
     with pytest.raises(ValueError, match="wk"):
-        from_jax_params(tree, pcfg)
+        from_jax_params(tree, pcfg, device="cpu")
 
 
 @pytest.mark.parametrize("variant", VARIANTS)

@@ -50,8 +50,12 @@ PINNED = {
     ("decode", "all-reduce"): (9, 9216),
     ("decode", "reduce-scatter"): (17, 53248),
 }
-# kinds the reference's GSPMD capture of the same step has and the port not
-GSPMD_ONLY = {"all-to-all", "collective-permute"}
+# kinds the reference's GSPMD capture of the same step has and the port's
+# capture on a CPU mesh has not.  On a ``cuda`` mesh, the serving entry
+# point's default, the port does issue all-to-alls (DTensor's
+# shard_dim_alltoall, 218 a phase at full width): chip_smoke.py holds that
+# capture's per-phase calls to its own pinned table
+GSPMD_ONLY_ON_CPU_MESH = {"all-to-all", "collective-permute"}
 
 _REPORT: dict = {}
 
@@ -75,8 +79,8 @@ def test_two_phase_profile_is_pinned():
     assert got == PINNED
     assert all(op.weight == 1.0 for op in rep.compiled_ops)
     ref_kinds = {op["kind"] for op in json.loads(FIXTURE.read_text())["ops"]}
-    assert GSPMD_ONLY <= ref_kinds
-    assert not GSPMD_ONLY & {kind for _, kind in got}
+    assert GSPMD_ONLY_ON_CPU_MESH <= ref_kinds
+    assert not GSPMD_ONLY_ON_CPU_MESH & {kind for _, kind in got}
 
 
 def test_ops_carry_mesh_groups_and_per_device_shapes():
