@@ -7,25 +7,31 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
 
 1. build   -- compile every CUDA source of the port (one nvcc each, in
               parallel) and print the build time;
-2. kernels -- each kernel against its plain PyTorch version on the card, in
-              bf16 at the serve path's shapes: max abs error beside its
-              tolerance, median time (CUDA events) beside its bound, the
-              plain version's time and one PyTorch library call's time;
-3. serve   -- Qwen3-8B at its published width and depth, random weights
-              from a seed, cast to bf16 once: 8 requests, prompt 128, 32 new
-              tokens, timed by the serve entry point.  Then one more
-              ``generate`` of the same requests, with the launch counters
-              zeroed just before and read just after: they must show that
-              prefill went through the attention kernel, decode through the
-              decode kernel and every norm through the RMSNorm kernel.
-              The first decode step's logits are held against the same
-              step with the plain versions, and torch.profiler shows where
-              one prefill's and four decode steps' device time goes, with
-              the device's idle share;
-4. monitor -- the two-phase prefill/decode capture of the same model at full
-              width on a fake 4x2 mesh, under FakeTensorMode on ``cuda``;
-              its per-phase collective calls must equal a pinned table, and
-              the report is saved, reloaded and compared.
+2. kernels -- each kernel against its plain PyTorch version on the card at
+              the serve paths' shapes (bf16 attention and norms, fp32
+              RG-LRU): max abs error beside its tolerance, median time
+              (CUDA events) beside its bound, the plain version's time and,
+              where one PyTorch call computes the same function, that
+              call's time;
+3. serve   -- for each served architecture (Qwen3-8B, then
+              RecurrentGemma-2B), at its published width and depth, random
+              weights from a seed, cast to bf16 once: 8 requests, prompt
+              128, 32 new tokens, timed by the serve entry point.  Then one
+              more ``generate`` of the same requests, with the launch
+              counters zeroed just before and read just after: they must
+              equal the counts the architecture's layers imply (every norm
+              through the RMSNorm kernel, prefill attention through the
+              flash-attention kernel, decode attention through the
+              flash-decode kernel, every recurrence through the RG-LRU
+              kernel).  The first decode step's logits are held against the
+              same step with the plain versions, and torch.profiler shows
+              where one prefill's and four decode steps' device time goes,
+              with the device's idle share.  Each model is freed before the
+              next is built;
+4. monitor -- for each architecture, the two-phase prefill/decode capture at
+              full width on a fake 4x2 mesh, under FakeTensorMode on
+              ``cuda``; its per-phase collective calls must equal a pinned
+              table, and the report is saved, reloaded and compared.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and, last, the device line.  The script
@@ -34,6 +40,7 @@ JAX.
 """
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -43,11 +50,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s and bf16 tensor FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): bytes/s, bf16 tensor FLOP/s and
+# fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
-ARCH = "qwen3_8b"
+ARCHS = ("qwen3_8b", "recurrentgemma_2b")
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 128, 32
 
 
@@ -86,9 +95,10 @@ def time_ms(fn, *, iters: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak: float = BF16_FLOPS) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -103,6 +113,8 @@ def check_kernels() -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import decode_ref
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -124,11 +136,13 @@ def check_kernels() -> dict:
             fail(f"{name} {case}: max abs err {err} > tol {tol}")
         return ok
 
-    # -- RMSNorm: model rows (B*S, 4096) and the qk-norm rows (B,S,32,128)
+    # -- RMSNorm: Qwen3-8B's rows (B*S, 4096) and qk-norm rows (B,S,32,128),
+    # RecurrentGemma-2B's rows (B*S, 2560)
     tol = 2e-2   # one bf16 ulp at |y| ~ 2-4: the fp32 sum order may flip a rounding
     errs, main = [], None
     for case, shape in (("rows(B*S,4096)", (BATCH * PROMPT_LEN, 4096)),
-                        ("qk(B,S,32,128)", (BATCH, PROMPT_LEN, 32, 128))):
+                        ("qk(B,S,32,128)", (BATCH, PROMPT_LEN, 32, 128)),
+                        ("rows(B*S,2560)", (BATCH * PROMPT_LEN, 2560))):
         x = randn(*shape)
         w = (1.0 + 0.1 * torch.randn(shape[-1], generator=gen,
                                      device=dev)).to(bf16)
@@ -146,14 +160,16 @@ def check_kernels() -> dict:
                         bound_by=by)
     results["rmsnorm"] = dict(main, max_abs_err=max(errs))
 
-    # -- prefill attention: causal main shape, a ragged Sq, a window
+    # -- prefill attention: Qwen3-8B's causal main shape, a ragged Sq, a
+    # window; RecurrentGemma-2B's MQA at dh 256, causal and windowed
     tol = 2e-2   # tests/test_kernels.py bf16 tolerance
     errs, main = [], None
-    h, kvh, dh = 32, 8, 128
-    for case, sq, causal, window in (
-            ("causal B8 S128", PROMPT_LEN, True, 0),
-            ("ragged S100", 100, True, 0),
-            ("window48 S128", PROMPT_LEN, True, 48)):
+    for case, sq, h, kvh, dh, causal, window in (
+            ("causal B8 S128", PROMPT_LEN, 32, 8, 128, True, 0),
+            ("ragged S100", 100, 32, 8, 128, True, 0),
+            ("window48 S128", PROMPT_LEN, 32, 8, 128, True, 48),
+            ("mqa dh256 causal", PROMPT_LEN, 10, 1, 256, True, 0),
+            ("mqa dh256 window100", PROMPT_LEN, 10, 1, 256, True, 100)):
         q = randn(BATCH, sq, h, dh)
         k = randn(BATCH, sq, kvh, dh)
         v = randn(BATCH, sq, kvh, dh)
@@ -183,43 +199,105 @@ def check_kernels() -> dict:
                         bound_by=by)
     results["flash_attention"] = dict(main, max_abs_err=max(errs))
 
-    # -- flash decode: cache_len 1, 129 (the serve path's first step), 256
-    tol = 3e-2   # tests/test_kernels.py bf16 tolerance
+    # -- flash decode: Qwen3-8B's linear cache at cache_len 129 (the serve
+    # path's first step), 1 and 256; RecurrentGemma-2B's ring cache of the
+    # full window, 10 query heads of 256 over one kv head, before (129: the
+    # slots from 129 on are masked) and after (2048 + 100: all live) it
+    # wraps.  The model decodes a ring with window 0 (its window is L), so
+    # every case calls the kernel as the model does.
     errs, main = [], None
-    lmax = 256
-    kc = randn(BATCH, lmax, kvh, dh)
-    vc = randn(BATCH, lmax, kvh, dh)
-    q = randn(BATCH, h, dh)
-    for clen in (129, 1, 256):
+    cases = [(f"cache_len {n}", n, 32, 8, 128, 256) for n in (129, 1, 256)]
+    cases += [(f"ring cache_len {n}", n, 10, 1, 256, 2048)
+              for n in (129, 2048 + 100)]
+    for case, clen, h, kvh, dh, lmax in cases:
+        kc = randn(BATCH, lmax, kvh, dh)
+        vc = randn(BATCH, lmax, kvh, dh)
+        q = randn(BATCH, h, dh)
         cl = torch.tensor(clen, dtype=torch.int32, device=dev)
         out = fd_ops.decode_attend(q, kc, vc, cl)
         torch.cuda.synchronize()
-        err = (out.float() - decode_ref(q, kc, vc, cl).float()).abs().max().item()
+        ref = decode_ref(q, kc, vc, cl).float()
+        err = (out.float() - ref).abs().max().item()
+        # fp32 sums in another order, then one bf16 rounding of the output:
+        # at most one bf16 ulp of the largest output, 2^-7 * max|ref|.
+        # Errors on an H100 80GB: 0 (cache_len 1, out = v), 9.8e-4 (129)
+        # and 2.4e-4 (2148); each case prints its tolerance beside them
+        tol = torch.finfo(torch.bfloat16).eps * ref.abs().max().item()
         ms = time_ms(lambda: fd_ops.decode_attend(q, kc, vc, cl))
         plain = time_ms(lambda: decode_ref(q, kc, vc, cl))
-        kt = kc[:, :clen].transpose(1, 2)
-        vt = vc[:, :clen].transpose(1, 2)
+        # the live slots: the first min(cache_len, L) of either layout
+        live = min(clen, lmax)
+        kt = kc[:, :live].transpose(1, 2)
+        vt = vc[:, :live].transpose(1, 2)
         lib = time_ms(lambda: F.scaled_dot_product_attention(
             q[:, :, None], kt, vt, enable_gqa=True))
-        b, by = bound_ms(2 * BATCH * clen * kvh * dh * 2 + 2 * q.numel() * 2,
-                         4 * BATCH * h * clen * dh)
-        record("flash_decode", f"cache_len {clen}", err, tol, ms, plain, lib,
-               b, by)
+        b, by = bound_ms(2 * BATCH * live * kvh * dh * 2 + 2 * q.numel() * 2,
+                         4 * BATCH * h * live * dh)
+        record("flash_decode", case, err, tol, ms, plain, lib, b, by)
         errs.append(err)
         if main is None:
             main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                         bound_by=by)
     results["flash_decode"] = dict(main, max_abs_err=max(errs))
+
+    # -- RG-LRU: RecurrentGemma-2B's prefill (8,128,2560) from a zero state
+    # and its decode step (8,1,2560) carrying h0, fp32.  No single PyTorch
+    # call computes a linear recurrence, so there is no library time
+    tol = 1e-4   # the same fp32 recurrence; only FMA contraction may differ
+    errs, main = [], None
+    d_rnn = 2560
+    for case, s_len, with_h0 in (("prefill (8,128,2560)", PROMPT_LEN, False),
+                                 ("decode (8,1,2560) h0", 1, True)):
+        x = torch.randn(BATCH, s_len, d_rnn, generator=gen, device=dev)
+        la = -F.softplus(torch.randn(BATCH, s_len, d_rnn, generator=gen,
+                                     device=dev))
+        h0 = (torch.randn(BATCH, d_rnn, generator=gen, device=dev)
+              if with_h0 else None)
+        out = rg_ops.rglru_scan(x, la, h0)
+        torch.cuda.synchronize()
+        err = (out - rglru_ref(x, la, h0)).abs().max().item()
+        ms = time_ms(lambda: rg_ops.rglru_scan(x, la, h0))
+        plain = time_ms(lambda: rglru_ref(x, la, h0))
+        nbytes = 3 * x.numel() * 4 + (h0.numel() * 4 if with_h0 else 0)
+        b, by = bound_ms(nbytes, 3 * x.numel(), FP32_FLOPS)
+        record("rglru", case, err, tol, ms, plain, None, b, by)
+        errs.append(err)
+        if main is None:
+            main = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
+                        bound_by=by)
+    results["rglru"] = dict(main, max_abs_err=max(errs))
     return results
 
 
-def run_serve() -> tuple[dict, dict]:
-    """Phase 3: the port's serve entry point at full width and depth, then
-    the counted main-path run: one more ``generate`` over the same prompts,
-    with every launch count zeroed just before it and read just after.
-    (``launch.serve`` runs an untimed warm-up before its timed run, so
-    counts taken around it would hold the warm-up's launches too.)
-    Returns the counted run's launch counts and the serve result."""
+def expected_launches(cfg, steps: int) -> dict:
+    """Kernel launches of one prefill and ``steps`` decode steps: per
+    prefill and per decode step two RMSNorms a layer (norm1, norm2), two
+    more per attention layer with qk-norm, and the final norm; per prefill
+    one flash attention an attention layer, per decode step one flash
+    decode an attention layer; per prefill and per decode step one RG-LRU
+    scan a recurrent layer (``cfg.block_kind`` names each layer's kind)."""
+    n = cfg.n_layers
+    n_attn = sum(cfg.block_kind(i) == "attn" for i in range(n))
+    norms = 2 * n + 1 + (2 * n_attn if cfg.qk_norm else 0)
+    return {"rmsnorm": (1 + steps) * norms, "flash_attention": n_attn,
+            "flash_decode": steps * n_attn,
+            "rglru": (1 + steps) * (n - n_attn)}
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def run_serve(arch: str) -> tuple[dict, dict]:
+    """Phase 3 for one architecture: the port's serve entry point at full
+    width and depth, then the counted main-path run: one more ``generate``
+    over the same prompts, with every launch count zeroed just before it
+    and read just after.  (``launch.serve`` runs an untimed warm-up before
+    its timed run, so counts taken around it would hold the warm-up's
+    launches too.)  Returns the counted run's launch counts and the serve
+    result."""
     from unittest import mock
 
     import torch
@@ -227,17 +305,18 @@ def run_serve() -> tuple[dict, dict]:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import decode_ref
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
     from repro_torch.launch import serve as launch
     from repro_torch.parallel import Sharder
     from repro_torch.serve import generate
 
-    cfg = launch.model_config(ARCH)
-    L = cfg.n_layers
+    cfg = launch.model_config(arch)
     res = launch.serve(cfg, batch=BATCH, prompt_len=PROMPT_LEN,
                        tokens=NEW_TOKENS, device="cuda")
-    log(f"[serve] {cfg.name} d{cfg.d_model} {L} of 36 layers, {BATCH} "
+    log(f"[serve] {cfg.name} d{cfg.d_model} {cfg.n_layers} layers, {BATCH} "
         f"requests x prompt {PROMPT_LEN} + {NEW_TOKENS} tokens: prefill "
         f"{res['prefill_ms']:.2f} ms | decode "
         f"{res['decode_ms_per_token']:.2f} ms/token | "
@@ -246,24 +325,19 @@ def run_serve() -> tuple[dict, dict]:
 
     model, params, shd = res["model"], res["params"], Sharder()
     mods = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
-            "flash_decode": fd_ops}
+            "flash_decode": fd_ops, "rglru": rg_ops}
     for m in mods.values():
         m.launches = 0
     toks = generate(model, params, res["prompts"], shd, steps=NEW_TOKENS,
                     max_len=PROMPT_LEN + NEW_TOKENS)
     torch.cuda.synchronize()
     counts = {name: m.launches for name, m in mods.items()}
-    # 1 prefill + NEW_TOKENS - 1 decode steps; per prefill and per decode
-    # step 4 RMSNorm launches a layer (norm1, norm2, q-norm, k-norm) + the
-    # final norm, per prefill L flash-attention launches, per decode step
-    # L flash-decode launches
     steps = NEW_TOKENS - 1
-    expect = {"rmsnorm": (1 + steps) * (4 * L + 1),
-              "flash_attention": L, "flash_decode": steps * L}
-    log(f"[serve] kernel launches of one prefill + {steps} decode steps "
-        f"{counts} (expected {expect})")
+    expect = expected_launches(cfg, steps)
+    log(f"[serve] {cfg.name} kernel launches of one prefill + {steps} decode "
+        f"steps {counts} (expected {expect})")
     if counts != expect:
-        fail(f"launch counts {counts} != expected {expect}")
+        fail(f"{cfg.name} launch counts {counts} != expected {expect}")
     for run, t in (("timed", res["tokens"]), ("counted", toks)):
         if tuple(t.shape) != (BATCH, NEW_TOKENS) or not bool(
                 ((t >= 0) & (t < cfg.vocab_size)).all()):
@@ -277,10 +351,11 @@ def run_serve() -> tuple[dict, dict]:
         logits0, cache = model.prefill(params, {"tokens": res["prompts"]},
                                        shd, max_len=PROMPT_LEN + NEW_TOKENS)
         tok = logits0.float().argmax(-1)[:, None]
-        plain_cache = {k: v.clone() for k, v in cache.items()}
+        plain_cache = _clone(cache)
         got, _ = model.decode_step(params, cache, {"tokens": tok}, shd)
         with mock.patch.object(rn_ops, "rmsnorm", rmsnorm_ref), \
-                mock.patch.object(fd_ops, "decode_attend", decode_ref):
+                mock.patch.object(fd_ops, "decode_attend", decode_ref), \
+                mock.patch.object(rg_ops, "rglru_scan", rglru_ref):
             want, _ = model.decode_step(params, plain_cache,
                                         {"tokens": tok}, shd)
     got, want = got.float(), want.float()
@@ -293,9 +368,9 @@ def run_serve() -> tuple[dict, dict]:
     # compound over depth; 5% of the largest logit bounds that drift
     tol = 0.05 * scale
     agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
-    log(f"[serve] first decode step logits vs plain versions: max_abs_err "
-        f"{err:.4f} (tol {tol:.4f} = 5% of max |logit| {scale:.2f}), "
-        f"argmax agreement {agree:.3f}")
+    log(f"[serve] {cfg.name} first decode step logits vs plain versions: "
+        f"max_abs_err {err:.4f} (tol {tol:.4f} = 5% of max |logit| "
+        f"{scale:.2f}), argmax agreement {agree:.3f}")
     if not err <= tol:
         fail(f"decode logits differ from the plain versions: {err} > {tol}")
     return counts, res
@@ -350,29 +425,40 @@ def profile_serve(res, steps: int = 4) -> None:
                                               {"tokens": tok}, shd)
                 tok = logits[:, -1].float().argmax(-1)[:, None]
 
-        window("prefill", prefill)
-        window(f"decode x{steps}", decode)
+        name = model.cfg.name
+        window(f"{name} prefill", prefill)
+        window(f"{name} decode x{steps}", decode)
 
 
-# The full-width capture's (phase, kind) -> calls on a fake 4x2 ``cuda``
-# mesh.  A ``cuda`` mesh's shard-to-shard redistribution is DTensor's own
-# ``_dtensor.shard_dim_alltoall`` (a CPU mesh issues all-gather + chunk
-# instead): an interceptor that misses it drops every all-to-all here.
+# Each architecture's full-width capture: (phase, kind) -> calls on a fake
+# 4x2 ``cuda`` mesh.  A ``cuda`` mesh's shard-to-shard redistribution is
+# DTensor's own ``_dtensor.shard_dim_alltoall`` (a CPU mesh issues
+# all-gather + chunk instead): an interceptor that misses it drops every
+# all-to-all here.
 MONITOR_CALLS = {
-    ("prefill", "all-to-all"): 218, ("prefill", "all-gather"): 109,
-    ("prefill", "reduce-scatter"): 181, ("prefill", "all-reduce"): 73,
-    ("decode", "all-to-all"): 218, ("decode", "all-gather"): 109,
-    ("decode", "reduce-scatter"): 145, ("decode", "all-reduce"): 73,
+    "qwen3_8b": {
+        ("prefill", "all-to-all"): 218, ("prefill", "all-gather"): 109,
+        ("prefill", "reduce-scatter"): 181, ("prefill", "all-reduce"): 73,
+        ("decode", "all-to-all"): 218, ("decode", "all-gather"): 109,
+        ("decode", "reduce-scatter"): 145, ("decode", "all-reduce"): 73,
+    },
+    "recurrentgemma_2b": {
+        ("prefill", "all-to-all"): 140, ("prefill", "all-gather"): 111,
+        ("prefill", "reduce-scatter"): 89, ("prefill", "all-reduce"): 71,
+        ("decode", "all-to-all"): 140, ("decode", "all-gather"): 103,
+        ("decode", "reduce-scatter"): 105, ("decode", "all-reduce"): 71,
+    },
 }
 
 
-def run_monitor() -> None:
-    """Phase 4: two-phase capture on a fake 4x2 mesh, its per-phase
-    collective calls held to :data:`MONITOR_CALLS`, saved and reloaded."""
+def run_monitor(arch: str) -> None:
+    """Phase 4 for one architecture: two-phase capture on a fake 4x2 mesh,
+    its per-phase collective calls held to :data:`MONITOR_CALLS`, saved and
+    reloaded."""
     from repro_torch.core import CommReport
     from repro_torch.launch import serve as launch
 
-    cfg = launch.model_config(ARCH)
+    cfg = launch.model_config(arch)
     t0 = time.perf_counter()
     rep = launch.monitor(cfg, mesh_shape=(4, 2), batch=BATCH,
                          prompt_len=PROMPT_LEN, tokens=NEW_TOKENS,
@@ -385,12 +471,15 @@ def run_monitor() -> None:
     calls = {(ph, kind): row["calls"]
              for ph, summ in rep.phase_summaries().items()
              for kind, row in summ.items()}
-    if calls != MONITOR_CALLS:
-        fail(f"per-phase collective calls {calls} != expected "
-             f"{MONITOR_CALLS}")
+    log(f"[monitor] {cfg.name} per-phase calls {calls}")
+    if not any(kind == "all-to-all" for _, kind in calls):
+        fail(f"{cfg.name}: no all-to-all recorded on a cuda mesh")
+    if calls != MONITOR_CALLS[arch]:
+        fail(f"{cfg.name} per-phase collective calls {calls} != expected "
+             f"{MONITOR_CALLS[arch]}")
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    path = out_dir / "chip_smoke_serve_report.json"
+    path = out_dir / f"chip_smoke_{arch}_report.json"
     rep.save(str(path))
     back = CommReport.load(str(path))
     if back.compiled_summary != rep.compiled_summary \
@@ -410,6 +499,8 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention/kernel.py:35"),
     "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode/kernel.py:28"),
+    "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
+              "src/repro/kernels/rglru/kernel.py:24"),
 }
 
 
@@ -434,14 +525,21 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
     kernels = check_kernels()
-    launches, res = run_serve()
-    profile_serve(res)
-    del res
-    run_monitor()
+    by_arch = {}
+    for arch in ARCHS:
+        by_arch[arch], res = run_serve(arch)
+        profile_serve(res)
+        del res        # free this model before the next one is built
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in ARCHS:
+        run_monitor(arch)
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
-         "replaces": KERNEL_META[name][1], "launches": launches[name],
+         "replaces": KERNEL_META[name][1],
+         "launches": sum(c[name] for c in by_arch.values()),
+         "launches_by_arch": {a: c[name] for a, c in by_arch.items()},
          **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")}}

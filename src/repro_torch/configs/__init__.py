@@ -1,6 +1,7 @@
 """Architecture registry (port of ``repro.configs``): one module per
 architecture, each exporting ``CONFIG`` (the published configuration) and
-``REDUCED`` (same family at test scale).  This slice ports ``qwen3_8b``."""
+``REDUCED`` (same family at test scale).  Ported so far: ``qwen3_8b``
+(dense) and ``recurrentgemma_2b`` (hybrid)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,7 +9,7 @@ import importlib
 
 from repro_torch.models.common import ModelConfig
 
-ARCH_IDS = ("qwen3_8b",)
+ARCH_IDS = ("qwen3_8b", "recurrentgemma_2b")
 
 
 def get(arch: str):

@@ -106,7 +106,11 @@ class CollectiveInterceptor(TorchDispatchMode):
     ``mesh`` (a ``DeviceMesh``) names the dimension each group belongs to
     and gives all of that dimension's groups as the op's replica groups
     (the program runs as one rank, but every rank issues the same op).  A
-    group outside the mesh dims is recorded with its own ranks.
+    group is matched to a dimension by its ranks, not by its name: DTensor
+    caches sharding decisions across meshes of equal layout, so a second
+    mesh built like an earlier one may issue collectives on the earlier
+    mesh's groups.  A group outside the mesh dims is recorded with its own
+    ranks.
     """
 
     def __init__(self, mesh=None):
@@ -114,15 +118,15 @@ class CollectiveInterceptor(TorchDispatchMode):
         self.events: list[TraceEvent] = []
         self.ops: list[CollectiveOp] = []
         self._groups: dict[str, tuple[str, list[list[int]]]] = {}
+        self._dims: list[tuple[str, list[list[int]]]] = []
         if mesh is not None:
             from torch._subclasses.fake_tensor import unset_fake_temporarily
 
             with unset_fake_temporarily():   # the mesh's rank table is real
                 for dim, name in enumerate(mesh.mesh_dim_names):
-                    rings = (mesh.mesh.movedim(dim, -1)
-                             .reshape(-1, mesh.shape[dim]).tolist())
-                    self._groups[mesh.get_group(name).group_name] = (
-                        name, rings)
+                    self._dims.append((name, mesh.mesh.movedim(dim, -1)
+                                       .reshape(-1, mesh.shape[dim])
+                                       .tolist()))
 
     def _groups_of(self, group_name: str) -> tuple[str, list[list[int]]]:
         if group_name not in self._groups:
@@ -130,9 +134,11 @@ class CollectiveInterceptor(TorchDispatchMode):
             from torch.distributed.distributed_c10d import \
                 _resolve_process_group
 
-            pg = _resolve_process_group(group_name)
-            self._groups[group_name] = (
-                group_name, [sorted(dist.get_process_group_ranks(pg))])
+            ranks = sorted(dist.get_process_group_ranks(
+                _resolve_process_group(group_name)))
+            self._groups[group_name] = next(
+                ((name, rings) for name, rings in self._dims
+                 if ranks in rings), (group_name, [ranks]))
         return self._groups[group_name]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):

@@ -15,7 +15,7 @@ from .. import build
 from .ref import decode_ref
 
 launches = 0
-MAX_GROUP_WIDTH = 1024      # G * dh outputs per CTA (csrc NACC * THREADS)
+MAX_GROUP_WIDTH = 2560      # G * dh outputs per CTA (csrc NACC * THREADS)
 
 
 def _launch(q, k_cache, v_cache, cache_len, window: int):

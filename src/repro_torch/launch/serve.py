@@ -3,11 +3,17 @@ communication profile of the same serve step on a fake mesh.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_8b \\
         --batch 8 --prompt-len 128 --tokens 32 --report serve_report.json
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch recurrentgemma_2b
 
-It builds the architecture at its published width (``--layers`` cuts the
-depth), with random weights from seed 0 cast once to bf16, and serves
-``--batch`` random prompts through the port's kernels on ``--device``
-(default ``cuda``; there is no quiet fallback to the CPU).  Then it captures
+It builds the architecture (``qwen3_8b`` or ``recurrentgemma_2b``) at its
+published width (``--layers`` cuts the depth), with random weights from
+seed 0 cast once to bf16, and serves ``--batch`` random prompts through the
+port's kernels on ``--device`` (default ``cuda``; there is no quiet
+fallback to the CPU).  The cast takes every leaf, RecurrentGemma's RG-LRU
+``lam``, gate biases and conv bias included: ``lam`` lies in about
+[4.3, 8.9], where the bf16 step is 1/32 to 1/16, so the decays move by a
+few percent against fp32 parameters.  Then it captures
 prefill and decode as two phases of a ``MonitorSession`` on a fake
 ``--mesh`` (default 4x2, data x model), prints the per-phase tables and the
 decode heatmap, and with ``--report`` saves a schema-v9 report that both
@@ -124,7 +130,7 @@ def monitor(cfg, *, mesh_shape=(4, 2), batch: int, prompt_len: int,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", default="qwen3_8b")
+    ap.add_argument("--arch", default="qwen3_8b", choices=configs.ARCH_IDS)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--tokens", type=int, default=32)

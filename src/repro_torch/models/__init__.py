@@ -1,11 +1,20 @@
 from .common import ModelConfig, Spec, init_params, param_axes, param_shapes
+from .rglru import GriffinLM
 from .transformer import TransformerLM
 
 
-def build_model(cfg: ModelConfig) -> TransformerLM:
-    """The model for a config (dense transformers in this port slice)."""
-    return TransformerLM(cfg)
+def build_model(cfg: ModelConfig):
+    """The model for a config, by family as the reference's
+    ``repro.models.api.build_model``: ``hybrid`` is :class:`GriffinLM`,
+    ``dense`` :class:`TransformerLM`; the other families wait for later
+    port slices."""
+    if cfg.family == "hybrid":
+        return GriffinLM(cfg)
+    if cfg.family == "dense":
+        return TransformerLM(cfg)
+    raise NotImplementedError(
+        f"model family {cfg.family!r} ({cfg.name}) is not ported yet")
 
 
-__all__ = ["ModelConfig", "Spec", "TransformerLM", "build_model",
-           "init_params", "param_axes", "param_shapes"]
+__all__ = ["GriffinLM", "ModelConfig", "Spec", "TransformerLM",
+           "build_model", "init_params", "param_axes", "param_shapes"]

@@ -146,8 +146,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, window: int = 0,
     """Single-position decode, plain: q (B,1,H,dh) over a (B,L,KVH,dh)
     cache.  ``cache_len`` (int or int32 scalar tensor) counts the valid
     entries, the new token's k/v already written (at ``(cache_len-1) % L``
-    if ``ring``).  The model calls it only for ring caches; other caches go
-    through the flash-decode kernel."""
+    if ``ring``).  The model decodes through the flash-decode kernel, ring
+    caches included; this plain version is the tests' oracle."""
     b, _, h, dh = q.shape
     _, lmax, kvh, _ = k_cache.shape
     g = h // kvh
@@ -248,12 +248,11 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
             idx = slot.reshape(1).long()
             kc.index_copy_(1, idx, k_.to(kc.dtype))
             vc.index_copy_(1, idx, v_.to(vc.dtype))
-            if ring:
-                return decode_attention(q_, kc, vc, pos + 1, window=win,
-                                        ring=True)
+            # a ring is kept only with win >= L, where its age mask keeps
+            # the slots below min(pos + 1, L): the linear mask, window 0
             return decode_ops.decode_attend(
                 q_[:, 0].contiguous(), kc, vc, pos + 1,
-                window=win)[:, None]
+                window=0 if ring else win)[:, None]
 
         out = shd.local(step, (q, k, v, cache["k"], cache["v"]),
                         (None, None, None, cache_ax, cache_ax))

@@ -65,6 +65,13 @@ class ModelConfig:
     def dh(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def d_rnn_(self) -> int:
+        return self.d_rnn or self.d_model
+
+    def block_kind(self, layer: int) -> str:
+        return self.block_pattern[layer % len(self.block_pattern)]
+
 
 # ---------------------------------------------------------------------------
 # declarative parameter specs
@@ -111,6 +118,11 @@ def _init_leaf(spec: Spec, gen: torch.Generator, dtype: torch.dtype,
         return torch.zeros(shape, dtype=dtype, device=device)
     if spec.init == "ones":
         return torch.ones(shape, dtype=dtype, device=device)
+    if spec.init == "rglru_a":
+        # Lambda such that a = sigmoid(Lambda) ** c lies in [0.9, 0.999]
+        u = torch.rand(shape, generator=gen, device=device) * 0.099 + 0.9
+        root = u ** (1.0 / 8.0)
+        return torch.log(root / (1 - root)).to(dtype)
     if spec.init in ("normal", "embed"):
         std = spec.scale
     elif spec.init == "fan_in":
@@ -156,6 +168,14 @@ def param_shapes(specs, param_dtype: str = "float32", device="cuda",
 
 def param_axes(specs):
     return _map(specs, lambda s: s.axes)
+
+
+def layer_of(tree, l: int):
+    """Layer ``l`` of every stacked ``(L, ...)`` leaf of a nested dict (the
+    slice the reference's ``scan`` over layers hands its body)."""
+    if isinstance(tree, dict):
+        return {k: layer_of(v, l) for k, v in tree.items()}
+    return tree[l]
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,8 @@ from typing import Optional
 import torch
 
 from . import attention, layers
-from .common import (ModelConfig, init_params, param_axes, param_shapes,
-                     rms_norm)
+from .common import (ModelConfig, init_params, layer_of, param_axes,
+                     param_shapes, rms_norm)
 
 CACHE_DTYPE = torch.bfloat16   # the reference's prefill hard-codes bf16
 
@@ -80,12 +80,6 @@ class TransformerLM:
         x = x + layers.mlp(lp["mlp"], h, cfg, shd)
         return shd.constraint(x, act), new_cache
 
-    @staticmethod
-    def _layer(tree, l: int):
-        if isinstance(tree, dict):
-            return {k: TransformerLM._layer(v, l) for k, v in tree.items()}
-        return tree[l]
-
     def _logits(self, params, x, shd):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps, shd,
                      ("batch", "seq", None))
@@ -133,7 +127,7 @@ class TransformerLM:
         for l in range(self.cfg.n_layers):
             layer_cache = {"k": cache["k"][l], "v": cache["v"][l],
                            "len": cache["len"]}
-            x, _ = self._layer_fn(x, self._layer(params["layers"], l), shd,
+            x, _ = self._layer_fn(x, layer_of(params["layers"], l), shd,
                                   cache=layer_cache)
         cache["len"].add_(x.shape[1])
         return self._logits(params, x, shd), cache
@@ -151,7 +145,7 @@ class TransformerLM:
         ks, vs = [], []
         for l in range(self.cfg.n_layers):
             x, new_cache = self._layer_fn(
-                x, self._layer(params["layers"], l), shd, cache=spec)
+                x, layer_of(params["layers"], l), shd, cache=spec)
             ks.append(new_cache["k"])
             vs.append(new_cache["v"])
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),

@@ -1,8 +1,10 @@
 """Hand the reference's parameters to the port.
 
 ``from_jax_params`` takes the pytree that ``repro``'s ``model.init(...)``
-returns, already converted to numpy (``jax.tree.map(np.asarray, params)``),
-and gives the port's parameter dict.  The port keeps the reference's names,
+returns for any ported model, already converted to numpy
+(``jax.tree.map(np.asarray, params)``), and gives the port's parameter
+dict, leaf for leaf against the specs of
+:func:`repro_torch.models.build_model`.  The port keeps the reference's names,
 its stacked ``(L, ...)`` leading dim and its ``(in, out)`` matrix layout, so
 no leaf is transposed: ``mlp.wi`` stays gate-then-up along its last dim (the
 port's ``torch.chunk(h, 2)`` splits it in the same order), and ``wq/wk/wv``
@@ -15,8 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models import build_model
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.transformer import TransformerLM
 
 
 def from_jax_params(tree, cfg: ModelConfig, device="cuda",
@@ -24,7 +26,7 @@ def from_jax_params(tree, cfg: ModelConfig, device="cuda",
     """Nested dict of numpy arrays -> nested dict of tensors on
     ``device`` (the GPU unless the caller passes ``"cpu"``; ``dtype``: keep
     each leaf's own dtype when None)."""
-    specs = TransformerLM(cfg).specs()
+    specs = build_model(cfg).specs()
 
     def convert(node, spec, path):
         if isinstance(spec, dict):

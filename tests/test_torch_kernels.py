@@ -7,7 +7,8 @@ to the Pallas kernel itself in interpret mode.  Inputs are made with numpy
 from a fixed seed and handed to both frameworks.  Tolerances are those of
 ``tests/test_kernels.py``: 2e-5 in fp32 (sum order), 2e-2 (prefill) and
 3e-2 (decode) in bf16, 4e-6 for RMSNorm (one fp32 rounding of the reduce).
-The CUDA kernels themselves run only on the card (``chip_smoke.py``).
+The CUDA kernels themselves run only on the card (``chip_smoke.py``); the
+RG-LRU recurrence's tests are in ``tests/test_torch_rglru.py``.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +22,7 @@ from repro.models import attention as jax_attention
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rn_ops
 from repro_torch.models import attention as torch_attention
 
@@ -188,9 +190,30 @@ class TestFlashDecode:
         out = torch_attention.decode_attention(qt, kt, vt, cl,
                                                window=window, ring=ring)
         assert _err(ref, out) < 2e-5
-        if not ring:   # the kernel's function is the non-ring path
-            got = fd_ops.decode_attend(qt[:, 0], kt, vt, cl, window=window)
-            assert _err(ref[:, 0], got) < 2e-5
+        # the model's kernel call: a ring (window >= L) decodes as window 0
+        got = fd_ops.decode_attend(qt[:, 0], kt, vt, cl,
+                                   window=0 if ring else window)
+        assert _err(ref[:, 0], got) < 2e-5
+
+    @pytest.mark.parametrize("window", [0, 24, 40])
+    @pytest.mark.parametrize("clen", [1, 10, 24, 37, 70])
+    def test_ring_matches_reference_model(self, clen, window):
+        """RecurrentGemma's decode: MQA with a group of 10 query heads over
+        a ring cache of L = 24 slots, before (cache_len <= L) and after it
+        wraps.  The model keeps a ring only when its window is at least L
+        (24 = L, 40 > L; 0 is no window) and then calls the kernel with
+        window 0, whose linear mask keeps the slots below min(cache_len, L):
+        the reference's age mask, slot for slot."""
+        rng = np.random.default_rng(clen * 31 + window)
+        qj, qt = _pair(rng, (2, 1, 10, 32))
+        kj, kt = _pair(rng, (2, 24, 1, 32))
+        vj, vt = _pair(rng, (2, 24, 1, 32))
+        ref = jax_attention.decode_attention(qj, kj, vj, jnp.int32(clen),
+                                             window=window, ring=True)
+        cl = torch.tensor(clen, dtype=torch.int32)
+        got = fd_ops.decode_attend(qt[:, 0], kt, vt, cl, window=0)
+        assert got.shape == (2, 10, 32)
+        assert _err(ref[:, 0], got) < 2e-5
 
     def test_matches_pallas_interpret(self):
         from repro.kernels.flash_decode.kernel import flash_decode
@@ -225,27 +248,30 @@ class TestWrappers:
             "rmsnorm": lambda: rn_ops._launch(x, torch.ones(8), 1e-6),
             "flash_attention": lambda: fa_ops._launch(q, kv, kv, True, 0, 0),
             "flash_decode": lambda: fd_ops._launch(q[:, 0], kv, kv, cl, 0),
+            "rglru": lambda: rg_ops._launch(x[None], x[None], None),
         }
 
     @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention",
-                                      "flash_decode"])
+                                      "flash_decode", "rglru"])
     def test_launch_without_toolkit_raises(self, no_toolkit, name):
         mod = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
-               "flash_decode": fd_ops}[name]
+               "flash_decode": fd_ops, "rglru": rg_ops}[name]
         before = mod.launches
         with pytest.raises(RuntimeError, match="nvcc not found"):
             self._calls()[name]()
         assert mod.launches == before
 
     def test_cpu_calls_do_not_count(self):
-        before = (rn_ops.launches, fa_ops.launches, fd_ops.launches)
+        mods = (rn_ops, fa_ops, fd_ops, rg_ops)
+        before = [m.launches for m in mods]
         rn_ops.rmsnorm(torch.ones(2, 8), torch.ones(8))
         fa_ops.attend(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 1, 8),
                       torch.ones(1, 4, 1, 8))
         fd_ops.decode_attend(torch.ones(1, 2, 8), torch.ones(1, 4, 1, 8),
                              torch.ones(1, 4, 1, 8),
                              torch.tensor(2, dtype=torch.int32))
-        assert (rn_ops.launches, fa_ops.launches, fd_ops.launches) == before
+        rg_ops.rglru_scan(torch.ones(1, 4, 8), torch.ones(1, 4, 8))
+        assert [m.launches for m in mods] == before
 
     def test_entry_point_asks_for_the_card(self, monkeypatch):
         from repro_torch.launch import serve as launch

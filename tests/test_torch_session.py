@@ -1,7 +1,8 @@
 """The port's capture (``MonitorSession`` over a fake process group) and its
 reports, against the reference.
 
-The reduced ``qwen3_8b`` serve step is captured in two phases, prefill and
+The reduced ``qwen3_8b`` serve step (and, at the end of the file, the
+reduced ``recurrentgemma_2b`` one) is captured in two phases, prefill and
 decode, on a fake 4x2 (data x model) mesh at the sizes of the committed
 ``tests/fixtures/serve_report.json`` (batch 8, prompt 32, cache 56).  Reports
 must cross-load in both directions with identical summaries and matrices.
@@ -57,25 +58,40 @@ PINNED = {
 # capture's per-phase calls to its own pinned table
 GSPMD_ONLY_ON_CPU_MESH = {"all-to-all", "collective-permute"}
 
+# the same for the reduced RecurrentGemma serve step (6 layers: two
+# (rec, rec, attn) superblocks), same mesh and sizes
+PINNED_GRIFFIN = {
+    ("prefill", "all-gather"): (49, 2537472),
+    ("prefill", "all-reduce"): (17, 557056),
+    ("prefill", "reduce-scatter"): (9, 532480),
+    ("decode", "all-gather"): (59, 161920),
+    ("decode", "all-reduce"): (17, 17408),
+    ("decode", "reduce-scatter"): (29, 88064),
+}
+
 _REPORT: dict = {}
 
 
-def _serve_report() -> CommReport:
-    if "rep" not in _REPORT:
+def _serve_report(arch: str = "qwen3_8b") -> CommReport:
+    if arch not in _REPORT:
         mesh_4x2()
-        cfg = configs.config("qwen3_8b", reduced=True)
-        _REPORT["rep"] = launch.monitor(cfg, mesh_shape=(4, 2), batch=8,
-                                        prompt_len=32, tokens=24,
-                                        device="cpu")
-    return _REPORT["rep"]
+        cfg = configs.config(arch, reduced=True)
+        _REPORT[arch] = launch.monitor(cfg, mesh_shape=(4, 2), batch=8,
+                                       prompt_len=32, tokens=24,
+                                       device="cpu")
+    return _REPORT[arch]
+
+
+def _table(rep) -> dict:
+    return {(ph, kind): (row["calls"], row["payload_bytes"])
+            for ph, summ in rep.phase_summaries().items()
+            for kind, row in summ.items()}
 
 
 def test_two_phase_profile_is_pinned():
     rep = _serve_report()
     assert rep.phase_names() == ["prefill", "decode"]
-    got = {(ph, kind): (row["calls"], row["payload_bytes"])
-           for ph, summ in rep.phase_summaries().items()
-           for kind, row in summ.items()}
+    got = _table(rep)
     assert got == PINNED
     assert all(op.weight == 1.0 for op in rep.compiled_ops)
     ref_kinds = {op["kind"] for op in json.loads(FIXTURE.read_text())["ops"]}
@@ -237,3 +253,145 @@ def test_dtensor_alltoall_is_recorded():
     assert op.kind == "all-to-all"
     assert op.result_shapes[0].dims == (8, 32, 16)
     assert op.replica_groups == [[0, 2, 4, 6], [1, 3, 5, 7]]
+
+
+# ---------------------------------------------------------------------------
+# RecurrentGemma (the hybrid family)
+# ---------------------------------------------------------------------------
+def test_a_second_capture_records_the_same_groups():
+    """DTensor caches sharding decisions across meshes of equal layout, so
+    a second ``launch.monitor`` in one process issues collectives on the
+    first mesh's groups; the interceptor matches groups by their ranks and
+    records the same profile both times."""
+    first = _serve_report()
+    again = launch.monitor(configs.config("qwen3_8b", reduced=True),
+                           mesh_shape=(4, 2), batch=8, prompt_len=32,
+                           tokens=24, device="cpu")
+    assert _table(again) == _table(first) == PINNED
+    assert [op.replica_groups for op in again.compiled_ops] == \
+        [op.replica_groups for op in first.compiled_ops]
+    assert all(len(op.replica_groups) in (2, 4) for op in again.compiled_ops)
+
+
+def test_griffin_two_phase_profile_is_pinned():
+    rep = _serve_report("recurrentgemma_2b")
+    assert rep.phase_names() == ["prefill", "decode"]
+    assert _table(rep) == PINNED_GRIFFIN
+    assert all(op.weight == 1.0 for op in rep.compiled_ops)
+
+
+def _rows(ops, weight=lambda op: 1.0):
+    """(kind, mesh axis, per-device dims, dtype) -> weighted calls."""
+    out: dict = {}
+    for op in ops:
+        groups = op.replica_groups
+        axis = ("model" if groups == [[0, 1], [2, 3], [4, 5], [6, 7]]
+                else "data" if groups == [[0, 2, 4, 6], [1, 3, 5, 7]]
+                else "-")
+        key = (op.kind, axis, op.result_shapes[0].dims,
+               op.result_shapes[0].dtype)
+        out[key] = out.get(key, 0) + weight(op)
+    return out
+
+
+def test_griffin_decode_against_gspmd():
+    """The port's capture of the reduced RecurrentGemma decode step against
+    the reference's GSPMD capture of the same step (``monitor_fn`` over
+    ``decode_step`` as ``repro.launch.serve`` runs it, batch 8, cache 56,
+    4x2 mesh).  Where they differ, the difference is pinned:
+
+    * GSPMD scans the two superblocks, so each of its ops has weight 2; the
+      port unrolls them (weight 1);
+    * both all-reduce the row-parallel outputs over ``model``;
+    * the dense RG-LRU gate products, the only fp32 collectives in either:
+      GSPMD all-gathers the ``rnn``-sharded conv output over ``model``,
+      fuses the ``w_a`` and ``w_x`` products into one and realigns its
+      split halves with collective-permutes; DTensor multiplies the shards
+      by the row-sharded ``w_a`` and ``w_x`` and reduce-scatters each fp32
+      partial product over ``model``, two per recurrent layer;
+    * DTensor turns data-partial products into batch-sharded rows with
+      reduce-scatters (the Qwen profile's difference, above);
+    * the RG-LRU scan itself issues no collective in either: it is
+      elementwise over the ``rnn`` shards
+      (:func:`test_rglru_scan_on_rnn_shards_issues_no_collective`).
+    """
+    from repro.configs import config as ref_config
+    from repro.core import monitor_fn as ref_monitor_fn
+    from repro.launch.mesh import make_test_mesh
+    from repro.models import build_model as ref_build_model
+    from repro.parallel import Sharder as RefSharder
+    import jax
+    import jax.numpy as jnp
+
+    mesh = make_test_mesh((4, 2), ("data", "model"))
+    shd = RefSharder(mesh)
+    model = ref_build_model(ref_config("recurrentgemma_2b", reduced=True))
+    ref = ref_monitor_fn(
+        lambda p, c, b: model.decode_step(p, c, b, shd), model.shapes(),
+        model.cache_shapes(8, 56),
+        {"tokens": jax.ShapeDtypeStruct((8, 1), jnp.int32)}, mesh=mesh,
+        name="decode[recurrentgemma_2b]")
+    port = _serve_report("recurrentgemma_2b")
+    port_decode = [op for op in port.compiled_ops if op.phase == "decode"]
+
+    assert {k: v["calls"] for k, v in ref.compiled_summary.items()} == {
+        "all-gather": 4, "all-reduce": 12, "collective-permute": 12}
+    assert {op.weight for op in ref.compiled_ops} == {2.0}
+    assert {kind for _, kind in PINNED_GRIFFIN} == {
+        "all-gather", "all-reduce", "reduce-scatter"}
+
+    ref_rows = _rows(ref.compiled_ops, weight=lambda op: op.weight)
+    port_rows = _rows(port_decode)
+    # row-parallel outputs: batch-sharded rows (8 / 4 = 2) of d_model 64
+    assert ref_rows[("all-reduce", "model", (2, 1, 64), "bf16")] == 12
+    assert port_rows[("all-reduce", "model", (2, 1, 64), "bf16")] == 8
+    # the RG-LRU gate products, the only fp32 collectives in either
+    assert {k: v for k, v in ref_rows.items() if k[3] == "f32"} == {
+        ("all-gather", "model", (2, 1, 64), "f32"): 4,
+        ("collective-permute", "-", (2, 1, 128), "f32"): 12}
+    assert {k: v for k, v in port_rows.items() if k[3] == "f32"} == {
+        ("reduce-scatter", "model", (2, 1, 32), "f32"): 8}
+
+
+def test_rglru_scan_on_rnn_shards_issues_no_collective():
+    from torch.distributed.tensor import Shard, distribute_tensor
+
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.parallel import Sharder
+
+    mesh = mesh_4x2()
+    shd = Sharder(mesh)
+    sess = MonitorSession(mesh=mesh, name="rglru")
+    with sess.fake_mode:
+        x = torch.empty(8, 16, 64)
+        h0 = torch.empty(8, 64)
+
+    def fn(x, la, h0):
+        x = distribute_tensor(x, mesh, (Shard(0), Shard(2)),
+                              src_data_rank=None)
+        la = distribute_tensor(la, mesh, (Shard(0), Shard(2)),
+                               src_data_rank=None)
+        h0 = distribute_tensor(h0, mesh, (Shard(0), Shard(1)),
+                               src_data_rank=None)
+        ax = ("batch", "seq", "rnn")
+        return shd.local(rg_ops.rglru_scan, (x, la, h0),
+                         (ax, ax, ("batch", "rnn")))
+
+    cap = sess.capture(fn, x, x, h0)
+    assert cap.ops == []
+
+
+def test_serve_entry_point_recurrentgemma_on_cpu(tmp_path, capsys):
+    """``python -m repro_torch.launch.serve --arch recurrentgemma_2b`` end
+    to end at test scale: prompt 30 + 4 tokens wraps the 32-slot ring."""
+    mesh_4x2()
+    path = tmp_path / "serve.json"
+    toks = launch.main(["--arch", "recurrentgemma_2b", "--reduced",
+                        "--device", "cpu", "--batch", "8", "--prompt-len",
+                        "30", "--tokens", "4", "--report", str(path)])
+    assert tuple(toks.shape) == (8, 4)
+    out = capsys.readouterr().out
+    assert "recurrentgemma-2b-reduced 6L on cpu" in out
+    assert "per-phase collectives" in out and "[phase decode]" in out
+    ref = ref_ser.report_from_dict(json.loads(path.read_text()))
+    assert ref.phase_names() == ["prefill", "decode"]
