@@ -161,84 +161,162 @@ def check_kernels() -> dict:
     results["rmsnorm"] = dict(main, max_abs_err=max(errs))
 
     # -- prefill attention: Qwen3-8B's causal main shape, a ragged Sq, a
-    # window; RecurrentGemma-2B's MQA at dh 256, causal and windowed
-    tol = 2e-2   # tests/test_kernels.py bf16 tolerance
+    # window, a chunk at q_offset 128, rows with no visible key (their
+    # outputs must be exactly 0, as from the Pallas kernel: the plain version
+    # gives the mean of v there, so these are held against zeros), dh 64;
+    # RecurrentGemma-2B's MQA at dh 256, causal and windowed; all bf16 on the
+    # tensor-core kernel, then one f16 case on the same kernel and one fp32
+    # case on the CUDA-core kernel
     errs, main = [], None
-    for case, sq, h, kvh, dh, causal, window in (
-            ("causal B8 S128", PROMPT_LEN, 32, 8, 128, True, 0),
-            ("ragged S100", 100, 32, 8, 128, True, 0),
-            ("window48 S128", PROMPT_LEN, 32, 8, 128, True, 48),
-            ("mqa dh256 causal", PROMPT_LEN, 10, 1, 256, True, 0),
-            ("mqa dh256 window100", PROMPT_LEN, 10, 1, 256, True, 100)):
-        q = randn(BATCH, sq, h, dh)
-        k = randn(BATCH, sq, kvh, dh)
-        v = randn(BATCH, sq, kvh, dh)
-        out = fa_ops.attend(q, k, v, causal=causal, window=window)
+    f32 = torch.float32
+    launched = {"flash_attention": set(), "flash_decode": set()}
+    for case, sq, skv, h, kvh, dh, window, q_offset, dtype, tol in (
+            ("causal B8 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0,
+             bf16, 2e-2),
+            ("ragged S100", 100, 100, 32, 8, 128, 0, 0, bf16, 2e-2),
+            ("window48 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 48, 0,
+             bf16, 2e-2),
+            ("q_offset128 Sq64 Skv192", 64, 192, 32, 8, 128, 0, 128, bf16,
+             2e-2),
+            ("fully masked Sq64 Skv64 q_offset200 window100", 64, 64, 32, 8,
+             128, 100, 200, bf16, 0.0),
+            ("dh64 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 64, 0, 0, bf16,
+             2e-2),
+            ("mqa dh256 causal", PROMPT_LEN, PROMPT_LEN, 10, 1, 256, 0, 0,
+             bf16, 2e-2),
+            ("mqa dh256 window100", PROMPT_LEN, PROMPT_LEN, 10, 1, 256, 100,
+             0, bf16, 2e-2),
+            ("f16 causal B8 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0,
+             torch.float16, 2e-2),
+            # tests/test_kernels.py fp32 tolerance
+            ("fp32 causal B8 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0,
+             f32, 2e-5)):
+        q = randn(BATCH, sq, h, dh).to(dtype)
+        k = randn(BATCH, skv, kvh, dh).to(dtype)
+        v = randn(BATCH, skv, kvh, dh).to(dtype)
+
+        def kernel():
+            return fa_ops.attend(q, k, v, causal=True, window=window,
+                                 q_offset=q_offset)
+
+        def plain():
+            return attention_ref(q, k, v, causal=True, window=window,
+                                 q_offset=q_offset)
+
+        out = kernel()
         torch.cuda.synchronize()
-        ref = attention_ref(q, k, v, causal=causal, window=window)
-        err = (out.float() - ref.float()).abs().max().item()
-        ms = time_ms(lambda: fa_ops.attend(q, k, v, causal=causal,
-                                           window=window))
-        plain = time_ms(lambda: attention_ref(q, k, v, causal=causal,
-                                              window=window))
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pos = torch.arange(sq, device=dev)
-        mask = pos[None, :] <= pos[:, None]
+        launched["flash_attention"].add((dtype, dh))
+        qpos = q_offset + torch.arange(sq, device=dev)
+        kpos = torch.arange(skv, device=dev)
+        mask = kpos[None, :] <= qpos[:, None]
         if window:
-            mask &= pos[None, :] > pos[:, None] - window
+            mask &= kpos[None, :] > qpos[:, None] - window
+        if bool(mask.any(-1).all()):
+            err = (out.float() - plain().float()).abs().max().item()
+        else:   # no row sees a key: every output must be exactly 0
+            err = out.float().abs().max().item()
+        ms = time_ms(kernel)
+        plain_ms = time_ms(plain)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        plain_causal = not window and not q_offset and sq == skv
         lib = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask if window else None,
-            is_causal=not window, enable_gqa=True))
+            qt, kt, vt, attn_mask=None if plain_causal else mask,
+            is_causal=plain_causal, enable_gqa=True))
         pairs = int(mask.sum().item())
-        b, by = bound_ms(2 * (q.numel() * 2 + k.numel() + v.numel()),
-                         4 * BATCH * h * pairs * dh)
-        record("flash_attention", case, err, tol, ms, plain, lib, b, by)
+        size = q.element_size()
+        b, by = bound_ms(size * (2 * q.numel() + k.numel() + v.numel()),
+                         4 * BATCH * h * pairs * dh,
+                         FP32_FLOPS if dtype == f32 else BF16_FLOPS)
+        record("flash_attention", case, err, tol, ms, plain_ms, lib, b, by)
         errs.append(err)
         if main is None:
-            main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+            main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b,
                         bound_by=by)
     results["flash_attention"] = dict(main, max_abs_err=max(errs))
 
-    # -- flash decode: Qwen3-8B's linear cache at cache_len 129 (the serve
-    # path's first step), 1 and 256; RecurrentGemma-2B's ring cache of the
-    # full window, 10 query heads of 256 over one kv head, before (129: the
-    # slots from 129 on are masked) and after (2048 + 100: all live) it
-    # wraps.  The model decodes a ring with window 0 (its window is L), so
-    # every case calls the kernel as the model does.
+    # -- flash decode.  The serve paths decode a cache of PROMPT_LEN +
+    # NEW_TOKENS = 160 slots from cache_len 129 (the first step) on:
+    # Qwen3-8B's linear cache, 32 query heads over 8 kv heads of 128 (the
+    # first case, the kernel's main row in the JSON line), and
+    # RecurrentGemma-2B's ring, 10 query heads of 256 over one kv head, at
+    # its first step and its last slot (the model decodes a ring with window
+    # 0, its window being at least L, so every ring case calls the kernel as
+    # the model does).  Then Qwen's heads on a 256-slot cache at cache_len
+    # 1, 16, 17 (most splits empty), 129, 256, and 129 with a window of 48
+    # (the window starts inside a chunk); the full 2048-slot ring of a long
+    # request, before (129) and after (2048 + 100: all live) it wraps; and
+    # the other inputs the wrapper accepts, each on its own path through the
+    # split kernel: fp32 q and caches at dh 256 (4-wide vectors, rows of 64
+    # vectors: one (head, key) pair a warp), fp32 q over bf16 caches, f16,
+    # dh 80 (not dividing the 256 threads: flat-index output owners) and dh
+    # 100 (not a multiple of 8: element-wise loads).
     errs, main = [], None
-    cases = [(f"cache_len {n}", n, 32, 8, 128, 256) for n in (129, 1, 256)]
-    cases += [(f"ring cache_len {n}", n, 10, 1, 256, 2048)
-              for n in (129, 2048 + 100)]
-    for case, clen, h, kvh, dh, lmax in cases:
-        kc = randn(BATCH, lmax, kvh, dh)
-        vc = randn(BATCH, lmax, kvh, dh)
-        q = randn(BATCH, h, dh)
+    f16, slots = torch.float16, PROMPT_LEN + NEW_TOKENS
+    cases = [(f"cache_len 129 L{slots}", 129, 32, 8, 128, slots, 0, bf16,
+              bf16)]
+    cases += [(f"ring cache_len {n} L{slots}", n, 10, 1, 256, slots, 0, bf16,
+               bf16) for n in (129, slots)]
+    cases += [(f"cache_len {n} L256", n, 32, 8, 128, 256, 0, bf16, bf16)
+              for n in (129, 1, 16, 17, 256)]
+    cases.append(("cache_len 129 window 48 L256", 129, 32, 8, 128, 256, 48,
+                  bf16, bf16))
+    cases += [(f"ring cache_len {n} L2048", n, 10, 1, 256, 2048, 0, bf16,
+               bf16) for n in (129, 2048 + 100)]
+    cases += [
+        (f"fp32 q/cache dh256 G10 L{slots}", 129, 10, 1, 256, slots, 0, f32,
+         f32),
+        (f"fp32 q bf16 cache L{slots}", 129, 32, 8, 128, slots, 0, f32, bf16),
+        (f"f16 q/cache L{slots}", 129, 32, 8, 128, slots, 0, f16, f16),
+        (f"dh80 G4 L{slots}", 129, 16, 4, 80, slots, 0, bf16, bf16),
+        (f"dh100 G4 L{slots}", 129, 16, 4, 100, slots, 0, bf16, bf16)]
+    for case, clen, h, kvh, dh, lmax, window, qdt, kvdt in cases:
+        kc = randn(BATCH, lmax, kvh, dh).to(kvdt)
+        vc = randn(BATCH, lmax, kvh, dh).to(kvdt)
+        q = randn(BATCH, h, dh).to(qdt)
         cl = torch.tensor(clen, dtype=torch.int32, device=dev)
-        out = fd_ops.decode_attend(q, kc, vc, cl)
+
+        def kernel():
+            return fd_ops.decode_attend(q, kc, vc, cl, window=window)
+
+        out = kernel()
         torch.cuda.synchronize()
-        ref = decode_ref(q, kc, vc, cl).float()
+        launched["flash_decode"].add((qdt, kvdt))
+        ref = decode_ref(q, kc, vc, cl, window=window).float()
         err = (out.float() - ref).abs().max().item()
-        # fp32 sums in another order, then one bf16 rounding of the output:
-        # at most one bf16 ulp of the largest output, 2^-7 * max|ref|.
-        # Errors on an H100 80GB: 0 (cache_len 1, out = v), 9.8e-4 (129)
-        # and 2.4e-4 (2148); each case prints its tolerance beside them
-        tol = torch.finfo(torch.bfloat16).eps * ref.abs().max().item()
-        ms = time_ms(lambda: fd_ops.decode_attend(q, kc, vc, cl))
-        plain = time_ms(lambda: decode_ref(q, kc, vc, cl))
-        # the live slots: the first min(cache_len, L) of either layout
-        live = min(clen, lmax)
-        kt = kc[:, :live].transpose(1, 2)
-        vt = vc[:, :live].transpose(1, 2)
-        lib = time_ms(lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, enable_gqa=True))
-        b, by = bound_ms(2 * BATCH * live * kvh * dh * 2 + 2 * q.numel() * 2,
-                         4 * BATCH * h * live * dh)
+        # fp32 sums in another order, then one rounding of the output: in a
+        # 16-bit q dtype at most one ulp of the largest output (2^-7 *
+        # max|ref| in bf16, 2^-10 in f16).  Errors on an H100 80GB: 0
+        # (cache_len 1, out = v), 9.8e-4 (bf16, 129) and 2.4e-4 (bf16,
+        # 2148); each case prints its tolerance beside them.  An fp32 output
+        # is held to the fp32 tolerance of tests/test_kernels.py
+        tol = (2e-5 if qdt == f32
+               else torch.finfo(qdt).eps * ref.abs().max().item())
+        ms = time_ms(kernel)
+        plain = time_ms(lambda: decode_ref(q, kc, vc, cl, window=window))
+        # the live slots of either layout: [cache_len - window if window,
+        # min(cache_len, L))
+        hi = min(clen, lmax)
+        lo = max(0, clen - window) if window else 0
+        kt = kc[:, lo:hi].transpose(1, 2)
+        vt = vc[:, lo:hi].transpose(1, 2)
+        lib = None   # SDPA takes one dtype for q, k and v
+        if qdt == kvdt:
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], kt, vt, enable_gqa=True))
+        live = hi - lo
+        b, by = bound_ms(
+            2 * BATCH * live * kvh * dh * kc.element_size()
+            + 2 * q.numel() * q.element_size(), 4 * BATCH * h * live * dh,
+            FP32_FLOPS if qdt == f32 else BF16_FLOPS)
+        log(f"[kernels] flash_decode {case}: nsplit "
+            f"{fd_ops.splits_for(q, kc)} ({BATCH * kvh} (b, kv head) groups)")
         record("flash_decode", case, err, tol, ms, plain, lib, b, by)
         errs.append(err)
         if main is None:
             main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                         bound_by=by)
     results["flash_decode"] = dict(main, max_abs_err=max(errs))
+    check_kernel_attrs(launched)
 
     # -- RG-LRU: RecurrentGemma-2B's prefill (8,128,2560) from a zero state
     # and its decode step (8,1,2560) carrying h0, fp32.  No single PyTorch
@@ -267,6 +345,39 @@ def check_kernels() -> dict:
                         bound_by=by)
     results["rglru"] = dict(main, max_abs_err=max(errs))
     return results
+
+
+def check_kernel_attrs(launched: dict) -> None:
+    """Registers and local memory (spills) a thread of every attention
+    kernel instance the kernel phase launched, as the CUDA runtime reports
+    them: flash attention by (dtype, head dim), flash decode's split kernel
+    by (q dtype, cache dtype) and its combine by q dtype.  Any local memory
+    fails the run."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    code, name_of = build.DTYPE_CODES, lambda dt: str(dt).split(".")[-1]
+    out = (ctypes.c_int * 4)()
+    rows = []
+    for dtype, dh in sorted(launched["flash_attention"], key=str):
+        build.check("flash_attention", build.library(
+            "flash_attention").repro_flash_attention_attrs(
+                code[dtype], dh, ctypes.addressof(out)))
+        rows.append((f"flash_attention {name_of(dtype)} dh{dh}", out[0],
+                     out[1]))
+    for qdt, kvdt in sorted(launched["flash_decode"], key=str):
+        build.check("flash_decode", build.library(
+            "flash_decode").repro_flash_decode_attrs(
+                code[qdt], code[kvdt], ctypes.addressof(out)))
+        rows.append((f"flash_decode split {name_of(qdt)}/{name_of(kvdt)}",
+                     out[0], out[1]))
+        rows.append((f"flash_decode combine {name_of(qdt)}", out[2], out[3]))
+    for name, regs, local in dict.fromkeys(rows):
+        log(f"[kernels] {name}: {regs} registers, {local} B local memory "
+            "a thread")
+        if local != 0:
+            fail(f"{name} uses {local} B of local memory a thread (spills)")
 
 
 def expected_launches(cfg, steps: int) -> dict:

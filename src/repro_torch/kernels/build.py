@@ -29,6 +29,26 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
+# Every exported C function's argument types (each returns a cudaError_t as
+# an int), set once when its library loads.
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "rmsnorm": {
+        "repro_rmsnorm": [_P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P],
+    },
+    "flash_attention": {
+        "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+        "repro_flash_attention_attrs": [_I, _I, _P],
+    },
+    "flash_decode": {
+        "repro_flash_decode": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 4 + [_P],
+        "repro_flash_decode_attrs": [_I, _I, _P],
+    },
+    "rglru": {
+        "repro_rglru": [_P] * 4 + [_I] * 3 + [_P],
+    },
+}
+
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -48,8 +68,11 @@ def nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library lives: named by a hash of the
+    source, every header of ``csrc/`` and the flags."""
     h = hashlib.sha256()
-    for f in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for f in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(f.name.encode())
         h.update(f.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -86,6 +109,9 @@ def build_all() -> dict[str, float]:
             lib = ctypes.CDLL(str(_library_path(name)))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return {"seconds": time.perf_counter() - t0}
 

@@ -6,8 +6,6 @@ counts kernel launches (only the CUDA branch adds to it).
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import build
@@ -25,10 +23,6 @@ def _launch(q, k, v, causal: bool, window: int, q_offset: int):
     if o.numel() == 0:
         return o
     fn = build.library("flash_attention").repro_flash_attention
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     err = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(o),
              b, sq, skv, h, kvh, dh, dh ** -0.5, int(causal), window,
              q_offset, build.DTYPE_CODES[q.dtype], build.stream_of(q))

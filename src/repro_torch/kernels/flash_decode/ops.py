@@ -1,13 +1,15 @@
-"""Decode-attention wrapper: the CUDA kernel ``csrc/flash_decode.cu`` for
-CUDA tensors, the plain version (:func:`.ref.decode_ref`) for CPU tensors.
+"""Decode-attention wrapper: the CUDA kernels of ``csrc/flash_decode.cu``
+(split-K: a split kernel and a combine, one C call) for CUDA tensors, the
+plain version (:func:`.ref.decode_ref`) for CPU tensors.
 
-``cache_len`` stays a device tensor: the kernel reads it, the host never
-does.  ``launches`` counts kernel launches (only the CUDA branch adds to
-it).
+``cache_len`` stays a device tensor: the kernels read it, the host never
+does; the number of splits comes from the shapes and the card alone
+(:func:`num_splits`).  ``launches`` counts calls that launched the kernels
+(only the CUDA branch adds to it).
 """
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
@@ -16,6 +18,30 @@ from .ref import decode_ref
 
 launches = 0
 MAX_GROUP_WIDTH = 2560      # G * dh outputs per CTA (csrc NACC * THREADS)
+SPLIT_KEYS = 16             # a split's chunk is a multiple of 16 keys
+
+
+def num_splits(b: int, kvh: int, lmax: int, sms: int) -> int:
+    """Splits of the cache per (batch row, kv head): the largest power of
+    two that keeps ``b * kvh * nsplit`` within two CTAs per SM, at least 1
+    and at most one per 16 slots of ``lmax``.  It never depends on
+    ``cache_len``, which only the device reads."""
+    per_group = max(1, 2 * sms // max(1, b * kvh))
+    n = 1 << (per_group.bit_length() - 1)
+    return max(1, min(n, -(-lmax // SPLIT_KEYS)))
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+def splits_for(q: torch.Tensor, k_cache: torch.Tensor) -> int:
+    """:func:`num_splits` for these CUDA tensors (the SM count is read once
+    per device)."""
+    b, lmax, kvh, _ = k_cache.shape
+    return num_splits(b, kvh, lmax, _sm_count(q.device.index))
 
 
 def _launch(q, k_cache, v_cache, cache_len, window: int):
@@ -26,14 +52,15 @@ def _launch(q, k_cache, v_cache, cache_len, window: int):
     if o.numel() == 0:
         return o
     fn = build.library("flash_decode").repro_flash_decode
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    nsplit = splits_for(q, k_cache)
+    g = h // kvh
+    scratch = torch.empty(b * kvh * nsplit * (g * dh + 2 * g),
+                          dtype=torch.float32, device=q.device)
     err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
-             build.ptr(cache_len), build.ptr(o), b, lmax, h, kvh, dh,
-             dh ** -0.5, window, build.DTYPE_CODES[q.dtype],
-             build.DTYPE_CODES[k_cache.dtype], build.stream_of(q))
+             build.ptr(cache_len), build.ptr(o), build.ptr(scratch), b, lmax,
+             h, kvh, dh, dh ** -0.5, window, nsplit,
+             build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_cache.dtype],
+             build.stream_of(q))
     build.check("flash_decode", err)
     launches += 1
     return o

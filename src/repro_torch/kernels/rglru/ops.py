@@ -7,7 +7,6 @@ kernel launches (only the CUDA branch adds to it).
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -25,9 +24,6 @@ def _launch(x, log_a, h0):
     if out.numel() == 0:
         return out
     fn = build.library("rglru").repro_rglru
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(build.ptr(x), build.ptr(log_a),
              None if h0 is None else build.ptr(h0), build.ptr(out), b, s, d,
              build.stream_of(x))

@@ -5,8 +5,6 @@ the plain version (:func:`.ref.rmsnorm_ref`) for a CPU tensor.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from .. import build
@@ -22,12 +20,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     rows = x.numel() // d if d else 0
     if rows == 0:
         return y
-    lib = build.library("rmsnorm")
-    fn = lib.repro_rmsnorm
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-                   ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.library("rmsnorm").repro_rmsnorm
     err = fn(build.ptr(x), build.ptr(w), build.ptr(y), rows, d, eps,
              build.DTYPE_CODES[x.dtype], build.stream_of(x))
     build.check("rmsnorm", err)

@@ -261,6 +261,28 @@ class TestWrappers:
             self._calls()[name]()
         assert mod.launches == before
 
+    def test_library_path_follows_every_header(self, monkeypatch, tmp_path):
+        """A library is named by its source, every ``csrc/*.cuh`` and the
+        flags, so an edit to any shared header rebuilds it."""
+        for name, text in (("k.cu", "src"), ("common.cuh", "a"),
+                           ("mma.cuh", "b")):
+            (tmp_path / name).write_text(text)
+        monkeypatch.setattr(build, "CSRC", tmp_path)
+        first = build._library_path("k")
+        assert build._library_path("k") == first
+        (tmp_path / "mma.cuh").write_text("b2")
+        second = build._library_path("k")
+        assert second != first
+        (tmp_path / "new.cuh").write_text("")
+        assert build._library_path("k") not in (first, second)
+
+    def test_signatures_cover_every_source(self):
+        """Each library's entry points get their ctypes signature once, at
+        load, from one table."""
+        assert set(build.SIGNATURES) == set(build.SOURCES)
+        assert all(name.startswith("repro_") for fns in
+                   build.SIGNATURES.values() for name in fns)
+
     def test_cpu_calls_do_not_count(self):
         mods = (rn_ops, fa_ops, fd_ops, rg_ops)
         before = [m.launches for m in mods]
