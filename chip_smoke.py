@@ -8,11 +8,15 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
 1. build   -- compile every CUDA source of the port (one nvcc each, in
               parallel) and print the build time;
 2. kernels -- each kernel against its plain PyTorch version on the card at
-              the serve paths' shapes (bf16 attention and norms, fp32
-              RG-LRU): max abs error beside its tolerance, median time
-              (CUDA events) beside its bound, the plain version's time and,
-              where one PyTorch call computes the same function, that
-              call's time;
+              the serve paths' shapes, prefill and decode (bf16 attention
+              and norms, fp32 RG-LRU), and at the other inputs each
+              wrapper takes: max abs error beside its tolerance, median
+              time (CUDA events) beside its bound, the plain version's time
+              and, where one PyTorch call computes the same function, that
+              call's time; RMSNorm's prefill shapes also cold (inputs
+              rotated through more than the L2 cache), and once the launch
+              floor (an 8-element add); then the registers and spills of
+              every RMSNorm and attention kernel instance launched;
 3. serve   -- for each served architecture (Qwen3-8B, then
               RecurrentGemma-2B), at its published width and depth, random
               weights from a seed, cast to bf16 once: 8 requests, prompt
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -103,6 +108,100 @@ def bound_ms(nbytes: float, flops: float,
 
 
 # ---------------------------------------------------------------------------
+# RMSNorm's cases and timings (also timed for another source tree by
+# tools/rmsnorm_bench.py)
+# ---------------------------------------------------------------------------
+COLD_BYTES = 64 * 2**20   # more than the H100's 50 MB L2 cache
+
+
+def rmsnorm_cases() -> list:
+    """(case, shape, dtype, kind, storage offset in elements).  Kind
+    "prefill" and "decode": the serve paths' rows in bf16 -- Qwen3-8B's
+    model-width rows and the qk-norm rows of its 32 query and 8 kv heads,
+    RecurrentGemma-2B's rows; prefill cases are timed cold too.  Kind
+    "other": f16 and fp32 at Qwen's prefill rows; widths the kernels take
+    at run time (lanes at 64; block at 384, at 2000 with four rows a CTA,
+    at 16384 with four vectors a thread); and inputs only the scalar kernel
+    takes: a contiguous view one element into its storage (not 16-byte
+    aligned) and two widths whose rows are not a multiple of 16 bytes."""
+    import torch
+
+    bf16, rows = torch.bfloat16, BATCH * PROMPT_LEN
+    return [
+        ("rows(B*S,4096)", (rows, 4096), bf16, "prefill", 0),
+        ("qk(B,S,32,128)", (BATCH, PROMPT_LEN, 32, 128), bf16, "prefill", 0),
+        ("qk(B,S,8,128)", (BATCH, PROMPT_LEN, 8, 128), bf16, "prefill", 0),
+        ("rows(B*S,2560)", (rows, 2560), bf16, "prefill", 0),
+        ("decode rows(B,4096)", (BATCH, 4096), bf16, "decode", 0),
+        ("decode qk(B,1,32,128)", (BATCH, 1, 32, 128), bf16, "decode", 0),
+        ("decode qk(B,1,8,128)", (BATCH, 1, 8, 128), bf16, "decode", 0),
+        ("decode rows(B,2560)", (BATCH, 2560), bf16, "decode", 0),
+        ("f16 rows(B*S,4096)", (rows, 4096), torch.float16, "other", 0),
+        ("fp32 rows(B*S,4096)", (rows, 4096), torch.float32, "other", 0),
+        ("width 64 (8,64)", (8, 64), bf16, "other", 0),
+        ("width 384 (8,384)", (8, 384), bf16, "other", 0),
+        ("width 2000 (4096,2000)", (4096, 2000), bf16, "other", 0),
+        ("width 16384 (8,16384)", (8, 16384), bf16, "other", 0),
+        ("misaligned decode rows(B,4096)", (BATCH, 4096), bf16, "other", 1),
+        ("odd width (8,100)", (8, 100), bf16, "other", 0),
+        ("odd width (B*S,4095)", (rows, 4095), bf16, "other", 0),
+    ]
+
+
+def rmsnorm_inputs(shape, dtype, offset, gen):
+    """x of ``shape`` (a contiguous view ``offset`` elements into its
+    storage) and w near 1, both in ``dtype``, on the card."""
+    import torch
+
+    dev = gen.device
+    store = torch.randn(offset + math.prod(shape), generator=gen,
+                        device=dev).to(dtype)
+    w = (1.0 + 0.1 * torch.randn(shape[-1], generator=gen, device=dev))
+    return store[offset:].view(shape), w.to(dtype)
+
+
+def rmsnorm_times(x, w, *, cold: bool) -> dict:
+    """The wrapper's, the plain version's and ``F.rms_norm``'s median
+    times on (x, w), and the bound.  ``cold``: also the wrapper's and
+    ``F.rms_norm``'s times over copies of x that together exceed the L2
+    cache, a different one each launch."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    d = x.shape[-1]
+    b, by = bound_ms(2 * x.numel() * x.element_size() + w.numel()
+                     * w.element_size(), 4 * x.numel(), FP32_FLOPS)
+    t = dict(ms=time_ms(lambda: rn_ops.rmsnorm(x, w, 1e-6)),
+             plain_ms=time_ms(lambda: rmsnorm_ref(x, w, 1e-6)),
+             library_ms=time_ms(lambda: F.rms_norm(x, (d,), w, 1e-6)),
+             bound_ms=b, bound_by=by)
+    if cold:
+        n = max(2, -(-COLD_BYTES // (x.numel() * x.element_size())))
+        xs = [x.clone() for _ in range(n)]
+        nxt = itertools.cycle(xs).__next__
+        t["cold_ms"] = time_ms(lambda: rn_ops.rmsnorm(nxt(), w, 1e-6))
+        t["library_cold_ms"] = time_ms(
+            lambda: F.rms_norm(nxt(), (d,), w, 1e-6))
+        del xs
+    return t
+
+
+def launch_floor_ms() -> float:
+    """Median time of an 8-element in-place add on the card: what one
+    launch of the least work costs back to back (a library op, timed for
+    reference only)."""
+    import torch
+
+    z = torch.zeros(8, device="cuda")
+    return time_ms(lambda: z.add_(1.0))
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_kernels() -> dict:
@@ -130,35 +229,44 @@ def check_kernels() -> dict:
         ok = err <= tol
         log(f"[kernels] {name} {case}: max_abs_err {err:.3e} (tol {tol:g}) "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | bound "
-            f"{bound:.4f} ms ({by}) | plain {plain:.4f} ms | library "
+            f"{bound:.4g} ms ({by}) | plain {plain:.4f} ms | library "
             + (f"{lib:.4f} ms" if lib is not None else "n/a"))
         if not ok:
             fail(f"{name} {case}: max abs err {err} > tol {tol}")
         return ok
 
-    # -- RMSNorm: Qwen3-8B's rows (B*S, 4096) and qk-norm rows (B,S,32,128),
-    # RecurrentGemma-2B's rows (B*S, 2560)
-    tol = 2e-2   # one bf16 ulp at |y| ~ 2-4: the fp32 sum order may flip a rounding
+    # -- RMSNorm: every case of rmsnorm_cases(), each against the plain
+    # version on the same inputs, with its launch plan; then the launch floor
+    launched = {"rmsnorm": set(), "flash_attention": set(),
+                "flash_decode": set()}
     errs, main = [], None
-    for case, shape in (("rows(B*S,4096)", (BATCH * PROMPT_LEN, 4096)),
-                        ("qk(B,S,32,128)", (BATCH, PROMPT_LEN, 32, 128)),
-                        ("rows(B*S,2560)", (BATCH * PROMPT_LEN, 2560))):
-        x = randn(*shape)
-        w = (1.0 + 0.1 * torch.randn(shape[-1], generator=gen,
-                                     device=dev)).to(bf16)
+    for case, shape, dtype, kind, offset in rmsnorm_cases():
+        prefill = kind == "prefill"
+        x, w = rmsnorm_inputs(shape, dtype, offset, gen)
         out = rn_ops.rmsnorm(x, w, 1e-6)
         torch.cuda.synchronize()
-        err = (out.float() - rmsnorm_ref(x, w, 1e-6).float()).abs().max().item()
-        ms = time_ms(lambda: rn_ops.rmsnorm(x, w, 1e-6))
-        plain = time_ms(lambda: rmsnorm_ref(x, w, 1e-6))
-        lib = time_ms(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6))
-        b, by = bound_ms(2 * x.numel() * 2 + w.numel() * 2, 4 * x.numel())
-        record("rmsnorm", case, err, tol, ms, plain, lib, b, by)
+        plan = rn_ops.plan_for(x, w)
+        launched["rmsnorm"].add((dtype, shape[-1], plan))
+        ref = rmsnorm_ref(x, w, 1e-6).float()
+        err = (out.float() - ref).abs().max().item()
+        # bf16/f16: one ulp at |y| ~ 2-4, since the fp32 sum order may flip a
+        # rounding; fp32: tests/test_torch_kernels.py's RMSNorm tolerance
+        tol = (4e-6 * max(1.0, ref.abs().max().item())
+               if dtype == torch.float32 else 2e-2)
+        t = rmsnorm_times(x, w, cold=prefill)
+        log(f"[kernels] rmsnorm {case}: plan {plan.variant} {plan.threads} "
+            f"threads x {plan.vpt} vectors, {plan.rows_per_cta} rows a CTA"
+            + (f" | cold: kernel {t['cold_ms']:.4f} ms, library "
+               f"{t['library_cold_ms']:.4f} ms" if prefill else ""))
+        record("rmsnorm", case, err, tol, t["ms"], t["plain_ms"],
+               t["library_ms"], t["bound_ms"], t["bound_by"])
         errs.append(err)
         if main is None:
-            main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                        bound_by=by)
+            main = {k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
     results["rmsnorm"] = dict(main, max_abs_err=max(errs))
+    log(f"[kernels] launch floor: {launch_floor_ms():.4f} ms, an 8-element "
+        "in-place add (a library op, timed for reference only)")
 
     # -- prefill attention: Qwen3-8B's causal main shape, a ragged Sq, a
     # window, a chunk at q_offset 128, rows with no visible key (their
@@ -169,7 +277,6 @@ def check_kernels() -> dict:
     # case on the CUDA-core kernel
     errs, main = [], None
     f32 = torch.float32
-    launched = {"flash_attention": set(), "flash_decode": set()}
     for case, sq, skv, h, kvh, dh, window, q_offset, dtype, tol in (
             ("causal B8 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0,
              bf16, 2e-2),
@@ -348,18 +455,25 @@ def check_kernels() -> dict:
 
 
 def check_kernel_attrs(launched: dict) -> None:
-    """Registers and local memory (spills) a thread of every attention
-    kernel instance the kernel phase launched, as the CUDA runtime reports
-    them: flash attention by (dtype, head dim), flash decode's split kernel
-    by (q dtype, cache dtype) and its combine by q dtype.  Any local memory
-    fails the run."""
+    """Registers and local memory (spills) a thread of every kernel instance
+    the kernel phase launched for RMSNorm and attention, as the CUDA
+    runtime reports them: RMSNorm by (dtype, width, plan), flash attention
+    by (dtype, head dim), flash decode's split kernel by (q dtype, cache
+    dtype) and its combine by q dtype.  Any local memory fails the run."""
     import ctypes
 
     from repro_torch.kernels import build
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
 
     code, name_of = build.DTYPE_CODES, lambda dt: str(dt).split(".")[-1]
     out = (ctypes.c_int * 4)()
     rows = []
+    for dtype, d, plan in sorted(launched["rmsnorm"], key=str):
+        build.check("rmsnorm", build.library("rmsnorm").repro_rmsnorm_attrs(
+            code[dtype], rn_ops.VARIANTS[plan.variant], d, plan.threads,
+            plan.vpt, ctypes.addressof(out)))
+        rows.append((f"rmsnorm {name_of(dtype)} d{d} {plan.variant} "
+                     f"{plan.threads}x{plan.vpt}", out[0], out[1]))
     for dtype, dh in sorted(launched["flash_attention"], key=str):
         build.check("flash_attention", build.library(
             "flash_attention").repro_flash_attention_attrs(
@@ -489,8 +603,9 @@ def run_serve(arch: str) -> tuple[dict, dict]:
 
 def profile_serve(res, steps: int = 4) -> None:
     """Where the serve step's time goes: ``torch.profiler`` over one
-    prefill and ``steps`` decode steps; the device kernels by self time and
-    the device's idle share of the wall time (both under the profiler)."""
+    prefill and ``steps`` decode steps; the ten device kernels with the most
+    self time, then every kernel of the port's, and the device's idle share
+    of the wall time (both under the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -518,7 +633,10 @@ def profile_serve(res, steps: int = 4) -> None:
             return
         log(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy "
             f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-        for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]:
+        rows.sort(key=lambda e: -e.self_device_time_total)
+        # the top ten, then the port's own kernels below them
+        for e in rows[:10] + [e for e in rows[10:]
+                              if any(k in e.key for k in KERNEL_META)]:
             log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
                 f"{e.count:6d} calls  {e.key[:90]}")
 

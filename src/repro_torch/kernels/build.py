@@ -10,6 +10,7 @@ when a source changes.  Nothing here runs when the module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,7 +35,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rmsnorm": {
-        "repro_rmsnorm": [_P, _P, _P, ctypes.c_longlong, _I, _F, _I, _P],
+        "repro_rmsnorm": [_P, _P, _P, ctypes.c_longlong, _I, _F] + [_I] * 5
+        + [_P],
+        "repro_rmsnorm_attrs": [_I] * 5 + [_P],
     },
     "flash_attention": {
         "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
@@ -129,6 +132,13 @@ def check(name: str, err: int) -> None:
     if err != 0:
         msg = library(name).repro_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({err})")
+
+
+@functools.cache
+def sm_count(device_index: int) -> int:
+    """Streaming multiprocessors of a CUDA device (read once per device)."""
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -9,8 +9,6 @@ does; the number of splits comes from the shapes and the card alone
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .. import build
@@ -31,17 +29,11 @@ def num_splits(b: int, kvh: int, lmax: int, sms: int) -> int:
     return max(1, min(n, -(-lmax // SPLIT_KEYS)))
 
 
-@functools.cache
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(
-        device_index).multi_processor_count
-
-
 def splits_for(q: torch.Tensor, k_cache: torch.Tensor) -> int:
     """:func:`num_splits` for these CUDA tensors (the SM count is read once
     per device)."""
     b, lmax, kvh, _ = k_cache.shape
-    return num_splits(b, kvh, lmax, _sm_count(q.device.index))
+    return num_splits(b, kvh, lmax, build.sm_count(q.device.index))
 
 
 def _launch(q, k_cache, v_cache, cache_len, window: int):
