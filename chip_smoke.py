@@ -32,10 +32,26 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               where one prefill's and four decode steps' device time goes,
               with the device's idle share.  Each model is freed before the
               next is built;
-4. monitor -- for each architecture, the two-phase prefill/decode capture at
+4. train   -- for each of the paper's applications (ResNet-18, GNMT, the
+              DDP microbenchmark's MLP) at the repo's paper configs' sizes,
+              through ``repro_torch.launch.paper``: 10 DDP steps in fp32
+              (TF32 off) on a one-rank NCCL group, the whole global batch on
+              the card.  Every loss must be finite and ResNet-18's last
+              below its first (class-conditioned data); the first step's
+              updated parameters are held against the same step run by the
+              port on the CPU; the all-reduces of one live step are counted
+              by the interceptor.  Median step ms after the warm-up step,
+              samples/s and peak memory are printed.  The group is
+              destroyed at the end of the phase;
+5. monitor -- for each architecture, the two-phase prefill/decode capture at
               full width on a fake 4x2 mesh, under FakeTensorMode on
               ``cuda``; its per-phase collective calls must equal a pinned
-              table, and the report is saved, reloaded and compared.
+              table, and the report is saved, reloaded and compared.  Then
+              each paper application's one-step capture at the same sizes
+              on a fake 8-way ``cuda`` data mesh: its per-kind calls and
+              payload bytes must equal a pinned table, its all-reduces the
+              live step's count, and its report is saved, reloaded and
+              compared.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and, last, the device line.  The script
@@ -63,6 +79,8 @@ FP32_FLOPS = 67e12
 
 ARCHS = ("qwen3_8b", "recurrentgemma_2b")
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 128, 32
+PAPER_APPS = ("resnet", "gnmt", "paper")
+TRAIN_STEPS = 10
 
 
 def fail(msg: str) -> None:
@@ -601,44 +619,48 @@ def run_serve(arch: str) -> tuple[dict, dict]:
     return counts, res
 
 
-def profile_serve(res, steps: int = 4) -> None:
-    """Where the serve step's time goes: ``torch.profiler`` over one
-    prefill and ``steps`` decode steps; the ten device kernels with the most
-    self time, then every kernel of the port's, and the device's idle share
-    of the wall time (both under the profiler)."""
+def profile_window(name: str, fn) -> None:
+    """``torch.profiler`` over one call of ``fn``: the ten device kernels
+    with the most self time, then every kernel of the port's, and the
+    device's idle share of the wall time (both under the profiler)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and str(e.device_type).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if not rows:
+        log(f"[profile] {name}: no device time in the trace "
+            "(device busy share not measured)")
+        return
+    log(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    # the top ten, then the port's own kernels below them
+    for e in rows[:10] + [e for e in rows[10:]
+                          if any(k in e.key for k in KERNEL_META)]:
+        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d} calls  {e.key[:90]}")
+
+
+def profile_serve(res, steps: int = 4) -> None:
+    """Where the serve step's time goes: :func:`profile_window` over one
+    prefill and over ``steps`` decode steps."""
+    import torch
 
     from repro_torch.parallel import Sharder
 
     model, params, shd = res["model"], res["params"], Sharder()
     max_len = PROMPT_LEN + NEW_TOKENS
-
-    def window(name, fn):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [e for e in prof.key_averages()
-                if getattr(e, "device_type", None) is not None
-                and str(e.device_type).endswith("CUDA")
-                and e.self_device_time_total > 0]
-        busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-        if not rows:
-            log(f"[profile] {name}: no device time in the trace "
-                "(device busy share not measured)")
-            return
-        log(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy "
-            f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-        rows.sort(key=lambda e: -e.self_device_time_total)
-        # the top ten, then the port's own kernels below them
-        for e in rows[:10] + [e for e in rows[10:]
-                              if any(k in e.key for k in KERNEL_META)]:
-            log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
-                f"{e.count:6d} calls  {e.key[:90]}")
 
     with torch.inference_mode():
         state = {}
@@ -655,8 +677,8 @@ def profile_serve(res, steps: int = 4) -> None:
                 tok = logits[:, -1].float().argmax(-1)[:, None]
 
         name = model.cfg.name
-        window(f"{name} prefill", prefill)
-        window(f"{name} decode x{steps}", decode)
+        profile_window(f"{name} prefill", prefill)
+        profile_window(f"{name} decode x{steps}", decode)
 
 
 # Each architecture's full-width capture: (phase, kind) -> calls on a fake
@@ -681,10 +703,9 @@ MONITOR_CALLS = {
 
 
 def run_monitor(arch: str) -> None:
-    """Phase 4 for one architecture: two-phase capture on a fake 4x2 mesh,
+    """Phase 5 for one architecture: two-phase capture on a fake 4x2 mesh,
     its per-phase collective calls held to :data:`MONITOR_CALLS`, saved and
     reloaded."""
-    from repro_torch.core import CommReport
     from repro_torch.launch import serve as launch
 
     cfg = launch.model_config(arch)
@@ -706,19 +727,141 @@ def run_monitor(arch: str) -> None:
     if calls != MONITOR_CALLS[arch]:
         fail(f"{cfg.name} per-phase collective calls {calls} != expected "
              f"{MONITOR_CALLS[arch]}")
+    save_and_reload(rep, arch)
+
+
+def save_and_reload(rep, name: str) -> None:
+    """Save ``rep`` under ``build/``, load it back and hold its summary,
+    phases and matrix to the original's."""
+    from repro_torch.core import CommReport
+
     out_dir = ROOT / "build"
     out_dir.mkdir(exist_ok=True)
-    path = out_dir / f"chip_smoke_{arch}_report.json"
+    path = out_dir / f"chip_smoke_{name}_report.json"
     rep.save(str(path))
     back = CommReport.load(str(path))
     if back.compiled_summary != rep.compiled_summary \
             or back.view().summary != rep.compiled_summary \
-            or back.phase_names() != ["prefill", "decode"]:
-        fail("reloaded report's summary differs from the original")
+            or back.phase_names() != rep.phase_names():
+        fail(f"{name}: reloaded report's summary differs from the original")
     if not (back.matrix == rep.matrix).all():
-        fail("reloaded report's matrix differs from the original")
+        fail(f"{name}: reloaded report's matrix differs from the original")
     log(f"[monitor] report saved to {path.relative_to(ROOT)} and reloaded: "
         "summary and matrix equal")
+
+
+# Each paper application's one-step capture at its paper config's sizes on a
+# fake 8-way ``cuda`` data mesh (``launch.paper.monitor``): kind -> (calls,
+# payload bytes).  The all-reduces are the 1 MiB gradient buckets (plus the
+# loss average of ``make_ddp_train_step``); GNMT's all-gathers are its
+# startup Broadcast (one per parameter, each gathering 8 copies) and the
+# metrics gather of its one step loss
+PAPER_MONITOR = {
+    "resnet": {"all-reduce": (17, 45078564)},
+    "gnmt": {"all-gather": (17, 211943456), "all-reduce": (15, 26492928)},
+    "paper": {"all-reduce": (4, 2101252)},
+}
+
+
+def run_paper_monitor(name: str, live_allreduces: int) -> None:
+    """Phase 5 for one paper application: its one-step capture, held to
+    :data:`PAPER_MONITOR` and to the all-reduces one live step issued."""
+    from repro_torch.launch import paper as launch
+
+    t0 = time.perf_counter()
+    rep = launch.monitor(launch.make_app(name), mesh_spec="8",
+                         device="cuda")
+    log(f"[monitor] {name} one step on a fake 8-way data mesh: "
+        f"{len(rep.compiled_ops)} collectives captured in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(rep.usage_table())
+    log(rep.heatmap())
+    got = {kind: (row["calls"], row["payload_bytes"])
+           for kind, row in rep.compiled_summary.items()}
+    log(f"[monitor] {name} (calls, payload bytes) by kind {got}; a live step "
+        f"issued {live_allreduces} all-reduces")
+    if got != PAPER_MONITOR[name]:
+        fail(f"{name} collectives {got} != expected {PAPER_MONITOR[name]}")
+    if got["all-reduce"][0] != live_allreduces:
+        fail(f"{name}: the capture records {got['all-reduce'][0]} "
+             f"all-reduces, a live step issued {live_allreduces}")
+    save_and_reload(rep, f"paper_{name}")
+
+
+def run_train() -> dict:
+    """Phase 4: every paper application trained on the card over a one-rank
+    NCCL group, its first step held against the same step on the CPU (a
+    one-rank gloo group).  Returns each application's live all-reduces per
+    step."""
+    import torch
+    import torch.distributed as dist
+
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import paper as launch
+    from repro_torch.models.common import tree_leaves
+
+    group = launch.open_group("cuda")
+    cpu_group = dist.new_group([0], backend="gloo")
+    live = {}
+    for name in PAPER_APPS:
+        app = launch.make_app(name)
+        res = launch.train(app, group, steps=TRAIN_STEPS, device="cuda")
+        losses = res["losses"]
+        log(f"[train] {name}: {TRAIN_STEPS} DDP steps of global batch "
+            f"{app.data.global_batch} on the card: median step "
+            f"{res['median_step_ms']:.3f} ms (steps 2-{TRAIN_STEPS}) | "
+            f"{res['samples_per_s']:.1f} samples/s | max memory "
+            f"{res['max_memory_bytes'] / 2**30:.3f} GiB | "
+            f"{res['allreduce_calls']} all-reduces a step")
+        log(f"[train] {name} losses {[round(v, 4) for v in losses]}; step ms "
+            f"{[round(v, 3) for v in res['step_ms']]}")
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{name}: non-finite loss {losses}")
+        if name == "resnet" and not losses[-1] < losses[0]:
+            fail(f"resnet did not learn: loss {losses[0]} -> {losses[-1]}")
+        # the first step on the CPU from the same weights and batch
+        cpu = launch.train(app, cpu_group, steps=1, device="cpu")
+        start = tree_leaves(launch.init_app_params(app, 0, "cpu"))
+        p_err = d_err = d_max = p_max = 0.0
+        for p0, g, c in zip(start, tree_leaves(res["first_params"]),
+                            tree_leaves(cpu["first_params"])):
+            p_err = max(p_err, (g - c).abs().max().item())
+            p_max = max(p_max, c.abs().max().item())
+            d_err = max(d_err, ((g - p0) - (c - p0)).abs().max().item())
+            d_max = max(d_max, (c - p0).abs().max().item())
+        # fp32 on both sides, summed in other orders (cuBLAS/cuDNN against
+        # the CPU's kernels): the parameters to 1e-5 of their largest; the
+        # update itself to 1e-3 of its largest, plus one fp32 rounding of
+        # the largest parameter (the update is read back as p1 - p0)
+        p_tol = 1e-5 * max(1.0, p_max)
+        d_tol = 1e-3 * d_max + torch.finfo(torch.float32).eps * p_max
+        log(f"[train] {name} first step, card against CPU: parameters "
+            f"max_abs_err {p_err:.3e} (tol {p_tol:.3e}), update max_abs_err "
+            f"{d_err:.3e} (tol {d_tol:.3e}: 1e-3 of max |update| "
+            f"{d_max:.3e} + eps x max |p| {p_max:.3f}); CPU loss "
+            f"{cpu['losses'][0]:.6f}, card {losses[0]:.6f}")
+        if not (p_err <= p_tol and d_err <= d_tol):
+            fail(f"{name}: the first step on the card differs from the CPU's")
+        live[name] = res["allreduce_calls"]
+        # where one step's time goes, from the start weights and batch, and
+        # the least time its matmuls and convolutions could take in fp32
+        step = app.step_fn(group)
+        params = launch.init_app_params(app, 0, "cuda")
+        batch = app.data.batch_at(0, "cuda")
+        profile_window(f"{name} train step", lambda: step(params, batch))
+        with FlopCounterMode(display=False) as flops:
+            step(params, batch)
+        b_ms = flops.get_total_flops() / FP32_FLOPS * 1e3
+        log(f"[train] {name} one step: {flops.get_total_flops() / 1e9:.2f} "
+            f"GFLOP in matmuls and convolutions (FlopCounterMode), fp32 "
+            f"bound {b_ms:.3f} ms at 67 TFLOP/s = "
+            f"{b_ms / res['median_step_ms']:.3f} of the median step")
+        del res, cpu, params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return live
 
 
 KERNEL_META = {
@@ -761,8 +904,11 @@ def main() -> None:
         del res        # free this model before the next one is built
         gc.collect()
         torch.cuda.empty_cache()
+    live = run_train()
     for arch in ARCHS:
         run_monitor(arch)
+    for name in PAPER_APPS:
+        run_paper_monitor(name, live[name])
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],

@@ -21,6 +21,9 @@ way the reference reads GSPMD's resharding from the compiled HLO.
 """
 from __future__ import annotations
 
+import itertools
+import math
+
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
@@ -105,7 +108,9 @@ class CollectiveInterceptor(TorchDispatchMode):
 
     ``mesh`` (a ``DeviceMesh``) names the dimension each group belongs to
     and gives all of that dimension's groups as the op's replica groups
-    (the program runs as one rank, but every rank issues the same op).  A
+    (the program runs as one rank, but every rank issues the same op); a
+    group of a flattened submesh, such as ``(pod, data)``, is matched to
+    those dimensions together and named ``pod_data``, as torch names it.  A
     group is matched to a dimension by its ranks, not by its name: DTensor
     caches sharding decisions across meshes of equal layout, so a second
     mesh built like an earlier one may issue collectives on the earlier
@@ -122,11 +127,18 @@ class CollectiveInterceptor(TorchDispatchMode):
         if mesh is not None:
             from torch._subclasses.fake_tensor import unset_fake_temporarily
 
+            names = mesh.mesh_dim_names
             with unset_fake_temporarily():   # the mesh's rank table is real
-                for dim, name in enumerate(mesh.mesh_dim_names):
-                    self._dims.append((name, mesh.mesh.movedim(dim, -1)
-                                       .reshape(-1, mesh.shape[dim])
-                                       .tolist()))
+                ranks = mesh.mesh
+                for r in range(1, len(names) + 1):
+                    for dims in itertools.combinations(range(len(names)), r):
+                        rest = [d for d in range(len(names)) if d not in dims]
+                        self._dims.append((
+                            "_".join(names[d] for d in dims),
+                            ranks.permute(*rest, *dims)
+                            .reshape(-1, math.prod(mesh.shape[d]
+                                                   for d in dims))
+                            .tolist()))
 
     def _groups_of(self, group_name: str) -> tuple[str, list[list[int]]]:
         if group_name not in self._groups:

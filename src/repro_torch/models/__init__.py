@@ -1,4 +1,6 @@
 from .common import ModelConfig, Spec, init_params, param_axes, param_shapes
+from .gnmt import GNMT
+from .resnet import ResNet18
 from .rglru import GriffinLM
 from .transformer import TransformerLM
 
@@ -7,7 +9,8 @@ def build_model(cfg: ModelConfig):
     """The model for a config, by family as the reference's
     ``repro.models.api.build_model``: ``hybrid`` is :class:`GriffinLM`,
     ``dense`` :class:`TransformerLM`; the other families wait for later
-    port slices."""
+    port slices.  The paper's applications (:class:`ResNet18`,
+    :class:`GNMT`) take no ``ModelConfig``, as in the reference."""
     if cfg.family == "hybrid":
         return GriffinLM(cfg)
     if cfg.family == "dense":
@@ -16,5 +19,6 @@ def build_model(cfg: ModelConfig):
         f"model family {cfg.family!r} ({cfg.name}) is not ported yet")
 
 
-__all__ = ["GriffinLM", "ModelConfig", "Spec", "TransformerLM",
-           "build_model", "init_params", "param_axes", "param_shapes"]
+__all__ = ["GNMT", "GriffinLM", "ModelConfig", "ResNet18", "Spec",
+           "TransformerLM", "build_model", "init_params", "param_axes",
+           "param_shapes"]

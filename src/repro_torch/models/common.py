@@ -1,8 +1,8 @@
 """Model substrate foundations (port of ``repro.models.common``): configs,
 declarative parameter specs and the RMSNorm every block calls.
 
-Models declare their parameters as a nested dict of :class:`Spec` (shape +
-logical sharding axes + initializer).  From that declaration come
+Models declare their parameters as nested dicts and lists of :class:`Spec`
+(shape + logical sharding axes + initializer).  From that declaration come
 ``init_params`` (materialized tensors from a ``torch.Generator``),
 ``param_shapes`` (``torch.empty`` stand-ins: under ``FakeTensorMode`` they
 allocate nothing) and ``param_axes`` (consumed by
@@ -96,18 +96,47 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def _leaves(tree, prefix=()):
-    """``(path, leaf)`` pairs in sorted-key order (the reference's pytree
-    flattening order)."""
+    """``(path, leaf)`` pairs: dict keys in sorted order, lists in index
+    order -- ``jax.tree.flatten``'s order, which fixes the reference's
+    gradient bucket plan.  A tuple is a leaf (an axes entry)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], prefix + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, prefix + (i,))
     else:
         yield prefix, tree
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict/list in :func:`_leaves` order."""
+    return [leaf for _, leaf in _leaves(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(v) for v in node]
+        return next(it)
+
+    out = build(like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
 
 
 def _map(tree, fn):
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map(v, fn) for v in tree]
     return fn(tree)
 
 
@@ -147,14 +176,10 @@ def init_params(specs, gen: torch.Generator, param_dtype: str = "float32",
     load).  The values differ from the reference's ``jax.random`` ones:
     tests hand the reference's weights over with
     :func:`repro_torch.weights.from_jax_params`."""
-    out: dict = {}
-    for path, spec in _leaves(specs):
-        leaf_dt = dtype or _dtype(spec.dtype or param_dtype)
-        node = out
-        for k in path[:-1]:
-            node = node.setdefault(k, {})
-        node[path[-1]] = _init_leaf(spec, gen, leaf_dt, device)
-    return out
+    return tree_unflatten(specs, [
+        _init_leaf(spec, gen, dtype or _dtype(spec.dtype or param_dtype),
+                   device)
+        for spec in tree_leaves(specs)])
 
 
 def param_shapes(specs, param_dtype: str = "float32", device="cuda",
