@@ -16,7 +16,12 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               call's time; RMSNorm's prefill shapes also cold (inputs
               rotated through more than the L2 cache), and once the launch
               floor (an 8-element add); then the registers and spills of
-              every RMSNorm and attention kernel instance launched;
+              every RMSNorm and attention kernel instance launched.  Then
+              the gradient check: backward through each of the four ops at
+              the serve paths' prefill shapes (and RG-LRU's decode step)
+              against backward through its plain version on the card, at
+              the forward's tolerance; each op's forward must launch its
+              kernel once and its backward (plain formulas) none;
 3. serve   -- for each served architecture (Qwen3-8B, then
               RecurrentGemma-2B), at its published width and depth, random
               weights from a seed, cast to bf16 once: 8 requests, prompt
@@ -51,7 +56,20 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               on a fake 8-way ``cuda`` data mesh: its per-kind calls and
               payload bytes must equal a pinned table, its all-reduces the
               live step's count, and its report is saved, reloaded and
-              compared.
+              compared.  Last, a ``batch_isend_irecv`` ring (7 steps of
+              one (B*S, 4096) bf16 block) captured on a fake 8-way
+              ``cuda`` mesh: its traced and recorded per-kind tables must
+              equal a pinned table, one SendRecv a step;
+6. scale   -- each architecture's full-width capture of phase 5 projected
+              onto fleets with ``repro_torch.scale.scale_curve``: Qwen3-8B
+              at 256 and 1024 devices, RecurrentGemma-2B at 256.  Each
+              point prints its ``scale_table`` row, nnz, the sparse
+              matrix's build ms, the bottleneck link and its ms, and its
+              wall seconds.  At every point the COO matrix must equal
+              ``matrix_for_ops(..., sparse=False)`` entry for entry and
+              its link projection the dense matrix's, and on the capture
+              and every point the batched ``total_time_split`` must equal
+              the per-op sum bitwise.
 
 Then one JSON line with every kernel's numbers, the card's name and power
 limit as nvidia-smi prints them, and, last, the device line.  The script
@@ -472,6 +490,99 @@ def check_kernels() -> dict:
     return results
 
 
+def check_kernel_grads() -> dict:
+    """Phase 2's gradient check: each op's backward (its autograd formula
+    over the plain version) against autograd through the plain version
+    itself, both on the card, at the serve paths' shapes and the forward's
+    tolerance.  The op's forward must launch its kernel once, its backward
+    none.  Returns each kernel's max abs gradient error."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import decode_ref
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    bf16, slots = torch.bfloat16, PROMPT_LEN + NEW_TOKENS
+
+    def randn(*shape, dtype=bf16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    cl = torch.tensor(129, dtype=torch.int32, device=dev)
+    rows = BATCH * PROMPT_LEN
+    d_rnn = 2560
+    # (kernel, case, op, plain, inputs, tol): bf16 at the forward's 2e-2
+    # (flash decode: one bf16 ulp of the largest gradient), RG-LRU fp32 at
+    # 1e-4
+    cases = [
+        ("rmsnorm", "rows(B*S,4096)", rn_ops, lambda x, w: rn_ops.rmsnorm(
+            x, w, 1e-6), lambda x, w: rmsnorm_ref(x, w, 1e-6),
+         [randn(rows, 4096), 1.0 + 0.1 * randn(4096)], 2e-2),
+        ("flash_attention", "causal B8 S128", fa_ops,
+         lambda q, k, v: fa_ops.attend(q, k, v, causal=True),
+         lambda q, k, v: attention_ref(q, k, v, causal=True),
+         [randn(BATCH, PROMPT_LEN, 32, 128), randn(BATCH, PROMPT_LEN, 8, 128),
+          randn(BATCH, PROMPT_LEN, 8, 128)], 2e-2),
+        ("flash_decode", f"cache_len 129 L{slots}", fd_ops,
+         lambda q, k, v: fd_ops.decode_attend(q, k, v, cl),
+         lambda q, k, v: decode_ref(q, k, v, cl),
+         [randn(BATCH, 32, 128), randn(BATCH, slots, 8, 128),
+          randn(BATCH, slots, 8, 128)], None),
+        ("rglru", "prefill (8,128,2560)", rg_ops, rg_ops.rglru_scan,
+         rglru_ref, [randn(BATCH, PROMPT_LEN, d_rnn, dtype=torch.float32),
+                     -F.softplus(randn(BATCH, PROMPT_LEN, d_rnn,
+                                       dtype=torch.float32))], 1e-4),
+        ("rglru", "decode (8,1,2560) h0", rg_ops, rg_ops.rglru_scan,
+         rglru_ref, [randn(BATCH, 1, d_rnn, dtype=torch.float32),
+                     -F.softplus(randn(BATCH, 1, d_rnn, dtype=torch.float32)),
+                     randn(BATCH, d_rnn, dtype=torch.float32)], 1e-4),
+    ]
+
+    def grads(fn, inputs, dy):
+        ts = [t.detach().clone().requires_grad_() for t in inputs]
+        fn(*ts).backward(dy)
+        return [t.grad.float() for t in ts]
+
+    errs: dict = {}
+    for name, case, mod, op, plain, inputs, tol in cases:
+        dy = torch.randn(op(*inputs).shape, generator=gen,
+                         device=dev).to(inputs[0].dtype)
+        before = mod.launches
+        got = grads(op, inputs, dy)
+        torch.cuda.synchronize()
+        if mod.launches != before + 1:
+            fail(f"{name} {case}: forward + backward launched the kernel "
+                 f"{mod.launches - before} times, not once")
+        want = grads(plain, inputs, dy)
+        if tol is None:
+            tol = torch.finfo(bf16).eps * max(w.abs().max().item()
+                                              for w in want)
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        finite = all(bool(torch.isfinite(g).all()) for g in got)
+        log(f"[grad] {name} {case}: max_abs_err {err:.3e} over "
+            f"{len(got)} input gradients (tol {tol:g}) "
+            f"{'ok' if finite and err <= tol else 'FAIL'}")
+        if not (finite and err <= tol):
+            fail(f"{name} {case}: gradient differs from the plain "
+                 f"version's: {err} > {tol}")
+        errs[name] = max(errs.get(name, 0.0), err)
+    # the backwards ran on autograd's device thread, whose cuBLAS handle
+    # keeps a workspace of its own (32 MiB on Hopper) for the life of the
+    # process; free it, so that the serve phase's peak memory is what a
+    # serving process holds
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return errs
+
+
 def check_kernel_attrs(launched: dict) -> None:
     """Registers and local memory (spills) a thread of every kernel instance
     the kernel phase launched for RMSNorm and attention, as the CUDA
@@ -702,10 +813,10 @@ MONITOR_CALLS = {
 }
 
 
-def run_monitor(arch: str) -> None:
+def run_monitor(arch: str):
     """Phase 5 for one architecture: two-phase capture on a fake 4x2 mesh,
     its per-phase collective calls held to :data:`MONITOR_CALLS`, saved and
-    reloaded."""
+    reloaded.  Returns the report."""
     from repro_torch.launch import serve as launch
 
     cfg = launch.model_config(arch)
@@ -728,6 +839,7 @@ def run_monitor(arch: str) -> None:
         fail(f"{cfg.name} per-phase collective calls {calls} != expected "
              f"{MONITOR_CALLS[arch]}")
     save_and_reload(rep, arch)
+    return rep
 
 
 def save_and_reload(rep, name: str) -> None:
@@ -786,6 +898,134 @@ def run_paper_monitor(name: str, live_allreduces: int) -> None:
         fail(f"{name}: the capture records {got['all-reduce'][0]} "
              f"all-reduces, a live step issued {live_allreduces}")
     save_and_reload(rep, f"paper_{name}")
+
+
+# The ring of phase 5: kind -> (calls, payload bytes), traced and recorded.
+# Seven steps, each a send of one (B*S, 4096) bf16 block to the next rank
+# and a recv from the previous one: one SendRecv, a collective-permute over
+# the whole ring
+RING_STEPS = 7
+RING_BLOCK = BATCH * PROMPT_LEN * 4096 * 2
+RING_MONITOR = {
+    "traced": {"SendRecv": (RING_STEPS, RING_STEPS * RING_BLOCK)},
+    "compiled": {"collective-permute": (RING_STEPS,
+                                        RING_STEPS * RING_BLOCK)},
+}
+
+
+def run_ring_monitor() -> None:
+    """Phase 5's ring: :data:`RING_STEPS` ``batch_isend_irecv`` steps on a
+    fake 8-way ``cuda`` mesh, held to :data:`RING_MONITOR`; each recorded
+    op's pairs must be the whole ring's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import MonitorSession, fake_mesh
+
+    mesh = fake_mesh((8,), ("data",), device="cuda")
+    group = mesh.get_group("data")
+
+    def ring(x):
+        for _ in range(RING_STEPS):
+            buf = torch.empty_like(x)
+            for w in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, 1, group),
+                    dist.P2POp(dist.irecv, buf, 7, group)]):
+                w.wait()
+            x = buf
+
+    sess = MonitorSession(mesh=mesh, name="ring")
+    with sess.fake_mode:
+        x = torch.empty(BATCH * PROMPT_LEN, 4096, dtype=torch.bfloat16,
+                        device="cuda")
+    sess.capture(ring, x)
+    rep = sess.report()
+    got = {"traced": {k: (r["calls"], r["payload_bytes"])
+                      for k, r in rep.traced_summary.items()},
+           "compiled": {k: (r["calls"], r["payload_bytes"])
+                        for k, r in rep.compiled_summary.items()}}
+    log(f"[monitor] batch_isend_irecv ring, {RING_STEPS} steps on a fake "
+        f"8-way cuda mesh: (calls, payload bytes) {got}")
+    if got != RING_MONITOR:
+        fail(f"ring capture {got} != expected {RING_MONITOR}")
+    ring_pairs = [(r, (r + 1) % 8) for r in range(8)]
+    if any(op.source_target_pairs != ring_pairs for op in rep.compiled_ops):
+        fail("ring capture: a SendRecv's pairs are not the whole ring's")
+
+
+# Phase 6's fleet sizes per architecture (the 4096- and 16384-device points
+# are held against the reference in tests/test_torch_scale.py, on small op
+# streams: a full-width capture routes its COO entries one at a time)
+SCALE_POINTS = {"qwen3_8b": (256, 1024), "recurrentgemma_2b": (256,)}
+
+
+def check_batched(ops, algorithm: str, topo, what: str) -> None:
+    """The batched engine's weighted ``total_time_split`` against the
+    per-op sum over fresh ``decompose`` calls, bitwise."""
+    from repro_torch.core.decompose import ScheduleBatch, decompose
+
+    got = ScheduleBatch.from_ops(ops, algorithm, topo).total_time_split()
+    ici = dcn = 0.0
+    for op in ops:
+        i, d = decompose(op, algorithm, topo, warn=False).time_split(topo)
+        w = max(1.0, float(op.weight))
+        ici += i * w
+        dcn += d * w
+    if got != (ici, dcn):
+        fail(f"{what}: batched total_time_split {got} != per-op sum "
+             f"{(ici, dcn)}")
+    log(f"[scale] {what}: batched total_time_split == per-op sum, bitwise "
+        f"(ici {got[0] * 1e3:.6f} ms, dcn {got[1] * 1e3:.6f} ms, "
+        f"{len(ops)} ops)")
+
+
+def run_scale(arch: str, rep) -> list:
+    """Phase 6 for one architecture's full-width capture: its scale curve,
+    each point's COO matrix and link view held against the dense ones, and
+    batched timing against per-op timing.  Returns the points."""
+    import numpy as np
+
+    from repro_torch import scale
+    from repro_torch.core import comm_matrix as cm
+
+    check_batched(rep.compiled_ops, rep.algorithm, rep.topo,
+                  f"{arch} capture ({rep.num_devices} devices)")
+    points = []
+    for n in SCALE_POINTS[arch]:
+        t0 = time.perf_counter()
+        (p,) = scale.scale_curve([rep], (n,))
+        wall = time.perf_counter() - t0
+        points.append(p)
+        log(scale.scale_table([p]))
+        log(f"[scale] {arch} {n} devices ({p.pods} pods, {p.ops} ops): nnz "
+            f"{p.nnz}, sparse build {p.build_ms:.1f} ms, bottleneck "
+            f"{p.bottleneck_link} {p.bottleneck_ms:.6f} ms, point wall "
+            f"{wall:.2f} s")
+        ops = scale.scale_ops(rep.compiled_ops, rep.num_devices, n)
+        topo = scale.fleet_topology(n)
+        t0 = time.perf_counter()
+        coo = cm.matrix_for_ops(ops, n, rep.algorithm, topo=topo,
+                                sparse=True)
+        dense = cm.matrix_for_ops(ops, n, rep.algorithm, topo=topo,
+                                  sparse=False)
+        if coo.nnz != p.nnz or not np.array_equal(coo.to_dense(), dense):
+            fail(f"{arch} {n} devices: the COO matrix differs from the "
+                 "dense one")
+        lu_coo = cm.project_links(coo, topo)
+        lu_dense = cm.project_links(dense, topo)
+        if lu_coo.bytes_by_link != lu_dense.bytes_by_link:
+            fail(f"{arch} {n} devices: links projected from COO differ from "
+                 "those projected from the dense matrix")
+        bn = lu_coo.bottleneck()
+        if (bn[0].name, bn[1] * 1e3) != (p.bottleneck_link, p.bottleneck_ms):
+            fail(f"{arch} {n} devices: the point's bottleneck differs from "
+                 "the projection's")
+        log(f"[scale] {arch} {n} devices: COO == dense entry for entry "
+            f"({coo.nnz} entries), link views equal over "
+            f"{len(lu_coo.bytes_by_link)} links (check "
+            f"{time.perf_counter() - t0:.2f} s)")
+        check_batched(ops, rep.algorithm, topo, f"{arch} {n} devices")
+    return points
 
 
 def run_train() -> dict:
@@ -897,6 +1137,7 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
     kernels = check_kernels()
+    grad_errs = check_kernel_grads()
     by_arch = {}
     for arch in ARCHS:
         by_arch[arch], res = run_serve(arch)
@@ -905,10 +1146,12 @@ def main() -> None:
         gc.collect()
         torch.cuda.empty_cache()
     live = run_train()
-    for arch in ARCHS:
-        run_monitor(arch)
+    reports = {arch: run_monitor(arch) for arch in ARCHS}
     for name in PAPER_APPS:
         run_paper_monitor(name, live[name])
+    run_ring_monitor()
+    for arch in ARCHS:
+        run_scale(arch, reports[arch])
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
@@ -917,7 +1160,8 @@ def main() -> None:
          "launches_by_arch": {a: c[name] for a, c in by_arch.items()},
          **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
-                                          "library_ms")}}
+                                          "library_ms")},
+         "grad_max_abs_err": grad_errs[name]}
         for name in KERNEL_META]}
     log(json.dumps(line))
     smi = subprocess.run(

@@ -36,10 +36,22 @@ from typing import Iterable, Optional
 import numpy as np
 
 from . import decompose as _dec
-from .decompose import (effective_byte_vector, effective_pods,  # noqa: F401
-                        validate_algorithm)
+from .decompose import (BoundedCache, effective_byte_vector,  # noqa: F401
+                        effective_pods, validate_algorithm)
 from .events import CollectiveOp
 from .topology import MeshTopology
+
+# Bounded caches for the Table-1 entry points: a long session repeats a few
+# (kind, payload, n, algorithm, pods) tuples, and the cap keeps an
+# adversarial stream from growing them without bound.
+_PER_RANK_CACHE = BoundedCache(maxsize=8192)
+_GROUP_TOTAL_CACHE = BoundedCache(maxsize=8192)
+
+
+def clear_billing_caches() -> None:
+    """Drop the memoized Table-1 entries (tests, post-spec mutation)."""
+    _PER_RANK_CACHE.clear()
+    _GROUP_TOTAL_CACHE.clear()
 
 
 def wire_bytes_per_rank(kind: str, payload: float, n: int,
@@ -73,7 +85,7 @@ def wire_bytes_per_rank(kind: str, payload: float, n: int,
     resolving per-role amounts.
 
     ``vec`` is an optional per-rank byte vector (irregular collectives):
-    a uniform vector collapses to the scalar path bitwise; a
+    a uniform vector collapses to the cached scalar path bitwise; a
     genuinely skewed one bills the **straggler** -- the max over the
     per-device send totals of the vector schedule.
     """
@@ -81,18 +93,35 @@ def wire_bytes_per_rank(kind: str, payload: float, n: int,
         return 0.0
     validate_algorithm(algorithm)
     vec = effective_byte_vector(kind, vec, n)
-    phases = _dec.group_phases(kind, float(payload if vec is None
-                                           else vec.sum()),
+    if vec is None:
+        return _per_rank_cached(kind, float(payload), n, algorithm,
+                                int(pods))
+    phases = _dec.group_phases(kind, float(vec.sum()),
                                np.arange(n, dtype=np.intp), algorithm,
                                topo=None, pods=int(pods), warn=False,
                                vec=vec)
-    if vec is None:
-        return float(sum(ph.bytes_per_rank for ph in phases))
     totals: dict[int, float] = {}
     for ph in phases:
         for d, b in ph.send_bytes().items():
             totals[d] = totals.get(d, 0.0) + b
     return float(max(totals.values(), default=0.0))
+
+
+def _per_rank_cached(kind: str, payload: float, n: int, algorithm: str,
+                     pods: int) -> float:
+    """Scalar-cached per-rank sum over the abstract phase plan (ops repeat
+    the same (kind, payload, n) tuples across summaries and matrices, so
+    the schedule is built once per distinct entry)."""
+    key = (kind, payload, n, algorithm, pods)
+    hit = _PER_RANK_CACHE.get(key)
+    if hit is not None:
+        return hit
+    phases = _dec.group_phases(kind, payload, np.arange(n, dtype=np.intp),
+                               algorithm, topo=None, pods=pods,
+                               warn=False)
+    out = float(sum(ph.bytes_per_rank for ph in phases))
+    _PER_RANK_CACHE.put(key, out)
+    return out
 
 
 def wire_bytes_group_total(kind: str, payload: float, n: int,
@@ -106,19 +135,35 @@ def wire_bytes_group_total(kind: str, payload: float, n: int,
     ``2*(n-1)*S`` total: S up and S down each of its ``n-1`` edges), so
     matrices, summaries and cost models all agree on the same totals.
     ``vec`` follows :func:`wire_bytes_per_rank`: irregular groups sum
-    their true per-position amounts (uniform vectors
-    collapse to the scalar path).
+    their true per-position amounts (cache bypassed; uniform vectors
+    collapse to the cached scalar path).
     """
     if n <= 1:
         return 0.0
     validate_algorithm(algorithm)
     vec = effective_byte_vector(kind, vec, n)
-    phases = _dec.group_phases(kind, float(payload if vec is None
-                                           else vec.sum()),
+    if vec is None:
+        return _group_total_cached(kind, float(payload), n, algorithm,
+                                   int(pods))
+    phases = _dec.group_phases(kind, float(vec.sum()),
                                np.arange(n, dtype=np.intp), algorithm,
                                topo=None, pods=int(pods), warn=False,
                                vec=vec)
     return float(sum(ph.total_send_bytes() for ph in phases))
+
+
+def _group_total_cached(kind: str, payload: float, n: int, algorithm: str,
+                        pods: int) -> float:
+    key = (kind, payload, n, algorithm, pods)
+    hit = _GROUP_TOTAL_CACHE.get(key)
+    if hit is not None:
+        return hit
+    phases = _dec.group_phases(kind, payload, np.arange(n, dtype=np.intp),
+                               algorithm, topo=None, pods=pods,
+                               warn=False)
+    out = float(sum(ph.total_send_bytes() for ph in phases))
+    _GROUP_TOTAL_CACHE.put(key, out)
+    return out
 
 
 def device_send_bytes(kind: str, payload: float, group: list[int],
@@ -175,7 +220,8 @@ def collective_time_split(op: CollectiveOp, topo: MeshTopology,
       payload at the per-chip DCN share -- it is NOT silently rebilled as
       hierarchical (that would contradict the matrix's edge placement).
     """
-    return _dec.decompose(op, algorithm, topo, warn=False).time_split(
+    return _dec.cached_decompose(op, algorithm, topo,
+                                 warn=False).time_split(
         topo, include_latency=include_latency)
 
 
@@ -210,18 +256,28 @@ def total_time_split(ops: Iterable[CollectiveOp], topo: MeshTopology,
     ``total_time == sum(total_time_split)`` by construction; the overlap
     roofline bound takes ``max`` of these instead of their sum (ICI and DCN
     are independent fabrics, so their busy times can fully overlap).
-    The per-op loop the reference's columnar ``ScheduleBatch`` reproduces
-    bitwise: per-op splits times ``max(1, weight)``, summed in op order.
+    Evaluated through the columnar :class:`~repro_torch.core.decompose.
+    ScheduleBatch` (decompose once per distinct shape, per-tier sums as
+    array expressions) -- bitwise identical to the per-op loop it
+    replaced.
     """
-    ici = 0.0
-    dcn = 0.0
-    for op in ops:
-        i, d = collective_time_split(op, topo, algorithm,
-                                     include_latency=include_latency)
-        w = max(1.0, float(getattr(op, "weight", 1.0)))
-        ici += i * w
-        dcn += d * w
-    return ici, dcn
+    batch = _dec.ScheduleBatch.from_ops(list(ops), algorithm, topo,
+                                        warn=False)
+    return batch.total_time_split(topo, include_latency=include_latency)
+
+
+def contention_time(ops: Iterable[CollectiveOp], topo: MeshTopology,
+                    algorithm: str = "ring") -> float:
+    """Bottleneck seconds: project every op onto physical links and take the
+    busiest link (bytes / link bandwidth), instead of a flat per-chip
+    bandwidth.  This is the contention-aware lower bound on communication
+    time -- two logical edges sharing one ICI cable serialize on it.
+    (Pure bandwidth: link projection carries bytes, not hop latencies.)
+    """
+    from . import comm_matrix  # deferred: comm_matrix imports this module
+
+    lu = comm_matrix.link_utilization_for_ops(list(ops), topo, algorithm)
+    return lu.bottleneck_seconds()
 
 
 # ----------------------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Unified collective decomposition engine (port of the per-op half of
+"""Unified collective decomposition engine (port of
 ``repro.core.decompose``): ONE phase-schedule IR.
 
 :func:`decompose` turns one :class:`~repro_torch.core.events.CollectiveOp`
@@ -22,17 +22,18 @@ up -- moving the same per-rank total (``2*(n-1)/n*S`` for all-reduce)
 entirely over neighbour links.  The hierarchical algorithm's intra-pod
 phases get the same treatment.
 
-The engine depends on numpy, topology and events only.  The reference's
-memoized/columnar evaluation (``cached_decompose``, ``ScheduleBatch``)
-waits for a later port slice; the reference pins it bitwise equal to this
-per-op path.
+The engine depends on numpy, topology and events only.  Its batched half
+evaluates an op stream per *distinct* op shape: :func:`cached_decompose`
+memoizes :func:`decompose` on :func:`op_signature`, and
+:class:`ScheduleBatch` lays every phase of a stream out in flat columns so
+timing runs as array expressions -- bitwise equal to the per-op path.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import warnings
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
 
@@ -88,6 +89,22 @@ def warn_fallback_once(kind: str, n: int, message: str,
     warnings.warn(HierarchicalFallbackWarning(message),
                   stacklevel=stacklevel + 1)
     return True
+
+
+def _note_fallback(records: Optional[list], warn: bool, kind: str, n: int,
+                   message: str) -> None:
+    """Record a fallback for memoized replay and (optionally) warn now.
+
+    :func:`decompose` routes its fallback sites through here so
+    :func:`cached_decompose` can capture the ``(kind, n, message)``
+    triples alongside the schedule and re-issue them on cache hits --
+    a hit must warn exactly as loudly as a miss would have (still
+    deduplicated by :func:`warn_fallback_once`).
+    """
+    if records is not None:
+        records.append((kind, int(n), message))
+    if warn:
+        warn_fallback_once(kind, n, message, stacklevel=2)
 
 
 def validate_algorithm(algorithm: str) -> str:
@@ -904,7 +921,8 @@ def _permute_relay_phases(pairs: np.ndarray, pair_pods: np.ndarray,
 
 def decompose(op: CollectiveOp, algorithm: str = "ring",
               topo: Optional[MeshTopology] = None, *,
-              warn: bool = True) -> CollectiveSchedule:
+              warn: bool = True,
+              _fallbacks: Optional[list] = None) -> CollectiveSchedule:
     """The engine's front door: one op -> its :class:`CollectiveSchedule`.
 
     The schedule covers ONE execution (consumers apply ``op.weight``).
@@ -980,26 +998,24 @@ def decompose(op: CollectiveOp, algorithm: str = "ring",
                                                    group, stream)
                 stream += 1
                 continue
-            if warn:
-                warn_fallback_once(
-                    op.kind, n,
-                    f"hierarchical {op.kind} over cross-pod group of {n} "
-                    "cannot decompose (uneven pod split); scheduling a "
-                    "flat all-to-all phase -- placement, billing and "
-                    "timing all share this fallback", stacklevel=2)
+            _note_fallback(
+                _fallbacks, warn, op.kind, n,
+                f"hierarchical {op.kind} over cross-pod group of {n} "
+                "cannot decompose (uneven pod split); scheduling a "
+                "flat all-to-all phase -- placement, billing and "
+                "timing all share this fallback")
             flat.setdefault((n, True), []).append(group)
             continue
         if algorithm == "hierarchical" and crosses \
                 and op.kind in HIERARCHICAL_KINDS:
             if gvec is not None:
-                if warn:
-                    warn_fallback_once(
-                        op.kind, n,
-                        f"irregular (per-rank vector) {op.kind} over "
-                        f"cross-pod group of {n} does not decompose "
-                        "hierarchically; scheduling a flat vector ring "
-                        "phase -- placement, billing and timing all "
-                        "share this fallback", stacklevel=2)
+                _note_fallback(
+                    _fallbacks, warn, op.kind, n,
+                    f"irregular (per-rank vector) {op.kind} over "
+                    f"cross-pod group of {n} does not decompose "
+                    "hierarchically; scheduling a flat vector ring "
+                    "phase -- placement, billing and timing all "
+                    "share this fallback")
                 flat.setdefault((n, True), []).append(group)
                 continue
             dec = hierarchical_decomposition(op.kind, group, topo)
@@ -1008,13 +1024,12 @@ def decompose(op: CollectiveOp, algorithm: str = "ring",
                                                stream)
                 stream += 1
                 continue
-            if warn:
-                warn_fallback_once(
-                    op.kind, n,
-                    f"hierarchical {op.kind} over cross-pod group of {n} "
-                    "cannot decompose (uneven pod split); scheduling flat "
-                    "ring phases -- placement, billing and timing all "
-                    "share this fallback", stacklevel=2)
+            _note_fallback(
+                _fallbacks, warn, op.kind, n,
+                f"hierarchical {op.kind} over cross-pod group of {n} "
+                "cannot decompose (uneven pod split); scheduling flat "
+                "ring phases -- placement, billing and timing all "
+                "share this fallback")
             flat.setdefault((n, True), []).append(group)
             continue
         if gvec is None and not crosses \
@@ -1033,3 +1048,408 @@ def decompose(op: CollectiveOp, algorithm: str = "ring",
                                            and vec.size == n) else None)
         stream += 1
     return CollectiveSchedule(op.kind, algorithm, phases)
+
+
+# ----------------------------------------------------------------------------
+# Batched schedule evaluation: memoized decompose + columnar phase columns.
+#
+# ``decompose`` is pure in ``(op shape, algorithm, topology)`` -- it never
+# reads ``op.weight``, ``op.name`` or the hardware spec -- so a workload
+# whose 10k ops repeat a few dozen shapes only needs a few dozen
+# decompositions.  :func:`op_signature` canonicalizes exactly the inputs
+# ``decompose`` consumes; :func:`cached_decompose` memoizes on it through
+# an explicit :class:`BoundedCache` (no ``lru_cache``: that would pin op
+# references for the life of the process); :func:`schedules_for_ops`
+# dedupes an op stream before decomposing and fans the shared schedule
+# objects back out, which downstream edge/phase caches key on ``id()``.
+# ----------------------------------------------------------------------------
+class BoundedCache:
+    """Tiny explicit LRU: ``get`` refreshes recency, ``put`` evicts the
+    stalest entry beyond ``maxsize``.  Replaces ``functools.lru_cache`` on
+    the billing/schedule hot paths so long-running sessions cannot grow an
+    unbounded key set, and so invalidation (:meth:`clear`) is a method on
+    an object rather than an attribute of a decorated function.  A lock
+    guards the recency reordering: the module-level schedule and billing
+    caches may be shared by threads."""
+
+    __slots__ = ("maxsize", "_data", "_lock", "hits", "misses")
+
+    def __init__(self, maxsize: int = 4096):
+        import threading
+        from collections import OrderedDict
+        self.maxsize = int(maxsize)
+        self._data: "OrderedDict" = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+
+    def get(self, key, default=None):
+        with self._lock:
+            try:
+                self._data.move_to_end(key)
+            except KeyError:
+                self.misses += 1
+                return default
+            self.hits += 1
+            return self._data[key]
+
+    def put(self, key, value) -> None:
+        with self._lock:
+            self._data[key] = value
+            self._data.move_to_end(key)
+            while len(self._data) > self.maxsize:
+                self._data.popitem(last=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._data.clear()
+            self.hits = 0
+            self.misses = 0
+
+    def __len__(self) -> int:
+        return len(self._data)
+
+    def __contains__(self, key) -> bool:
+        return key in self._data
+
+
+def topo_signature(topo: Optional[MeshTopology]):
+    """Hashable token for everything :func:`decompose` reads off a
+    topology: axis layout and the DCN axis set.  Deliberately EXCLUDES
+    ``topo.hw`` -- schedules are hardware-independent (bandwidths and
+    latencies only enter at :meth:`CommPhase.seconds` time), so two
+    meshes differing only in hardware share cache entries, while two
+    meshes with equal device counts but different axis shapes (say 8x4
+    vs 4x8) get distinct tokens and can never collide."""
+    if topo is None:
+        return None
+    return (tuple(topo.axis_names), tuple(topo.axis_sizes),
+            tuple(topo.dcn_axes))
+
+
+#: Identity-keyed memo for the list-valued signature tokens below.  Ops
+#: emitted by a capture loop (``dataclasses.replace`` per repetition)
+#: share their ``replica_groups`` / ``source_target_pairs`` /
+#: ``bytes_per_rank_vec`` objects, so canonicalizing those lists -- the
+#: dominant cost of :func:`op_signature` on wide meshes -- happens once
+#: per distinct object instead of once per op.  Entries hold a strong
+#: reference to the keyed object, so its ``id`` cannot be recycled while
+#: the entry lives and the ``is`` check below is definitive.
+_TOKEN_CACHE = BoundedCache(maxsize=4096)
+
+
+def _identity_token(obj, build):
+    """``build(obj)`` memoized by ``id(obj)`` (ops never mutate their
+    group/pair/vector lists in place -- the repo's event records are
+    replace-only by convention)."""
+    ent = _TOKEN_CACHE.get(id(obj))
+    if ent is not None and ent[0] is obj:
+        return ent[1]
+    tok = build(obj)
+    _TOKEN_CACHE.put(id(obj), (obj, tok))
+    return tok
+
+
+def _groups_token_of(rg):
+    """Canonical token for a replica-group list (device ids + grouping).
+
+    Nested tuples, not array bytes: ``tuple()`` over each group runs at C
+    speed on lists and ndarray rows alike, and numpy integer scalars hash
+    equal to Python ints, so value-equal groups in either representation
+    land on the same cache entry without ever materializing an array."""
+    return tuple(map(tuple, rg))
+
+
+def _groups_token(op: CollectiveOp):
+    """Canonical token for ``op.replica_groups`` (device ids + grouping)."""
+    rg = op.replica_groups or []
+    if not rg:
+        return ()
+    return _identity_token(rg, _groups_token_of)
+
+
+def _pairs_token_of(pairs):
+    return tuple(map(tuple, pairs))
+
+
+def _vec_token_of(raw):
+    return tuple(raw)
+
+
+def op_signature(op: CollectiveOp, algorithm: str = "ring",
+                 topo: Optional[MeshTopology] = None):
+    """Canonical, hashable key of ONE ``decompose`` call, or ``None`` when
+    the op resists canonicalization (then callers just decompose it
+    directly).  Covers every input the schedule depends on -- kind,
+    algorithm, topology axis layout, payload bytes, the raw per-rank byte
+    vector, and the exact replica groups / permute pairs -- and nothing
+    it does not: ``op.weight``, names and phase tags are consumer-side.
+    """
+    base = (op.kind, algorithm, topo_signature(topo))
+    try:
+        if op.kind == "collective-permute":
+            stp = op.source_target_pairs or []
+            ptok = _identity_token(stp, _pairs_token_of) if stp else ()
+            return base + (float(op.result_bytes), int(op.num_groups),
+                           ptok)
+        raw = getattr(op, "bytes_per_rank_vec", None)
+        if raw is None:
+            vtok = None
+        else:
+            op.byte_vector()          # keep the validation errors
+            vtok = _identity_token(raw, _vec_token_of)
+        return base + (float(op.payload_bytes), vtok, _groups_token(op))
+    except (TypeError, ValueError, OverflowError):
+        return None
+
+
+#: Process-wide schedule cache.  2048 distinct (shape, algorithm, topo)
+#: triples is far beyond any real capture's shape diversity; the bound
+#: exists so adversarial streams degrade to plain decompose, not OOM.
+_SCHEDULE_CACHE = BoundedCache(maxsize=2048)
+
+
+def schedule_cache() -> BoundedCache:
+    """The process-wide memoized-decompose cache (stats, tests)."""
+    return _SCHEDULE_CACHE
+
+
+def clear_schedule_cache() -> None:
+    """Drop every memoized schedule (tests, post-topology-mutation)."""
+    _SCHEDULE_CACHE.clear()
+
+
+def cached_decompose(op: CollectiveOp, algorithm: str = "ring",
+                     topo: Optional[MeshTopology] = None, *,
+                     warn: bool = True,
+                     cache: Optional[BoundedCache] = None
+                     ) -> CollectiveSchedule:
+    """Memoized :func:`decompose`: same signature -> the SAME schedule
+    object.  Fallback warnings recorded at miss time are replayed through
+    :func:`warn_fallback_once` on every warning hit, so the once-per-
+    session diagnostics survive memoization."""
+    cache = _SCHEDULE_CACHE if cache is None else cache
+    key = op_signature(op, algorithm, topo)
+    if key is None:
+        return decompose(op, algorithm, topo, warn=warn)
+    hit = cache.get(key)
+    if hit is not None:
+        sched, fallbacks = hit
+        if warn:
+            for kind, n, msg in fallbacks:
+                warn_fallback_once(kind, n, msg, stacklevel=1)
+        return sched
+    records: list = []
+    sched = decompose(op, algorithm, topo, warn=warn, _fallbacks=records)
+    cache.put(key, (sched, tuple(records)))
+    return sched
+
+
+def schedules_for_ops(ops: Iterable[CollectiveOp], algorithm: str,
+                      topo: Optional[MeshTopology] = None, *,
+                      warn: bool = False,
+                      cache: Optional[BoundedCache] = None
+                      ) -> list[CollectiveSchedule]:
+    """Schedules for an op stream, deduped by :func:`op_signature` before
+    decomposing and fanned back out: ops sharing a signature share ONE
+    schedule object, which edge/phase caches downstream key on ``id()``.
+    A per-call dedupe map backs the bounded cache so even a thrashing
+    cache cannot force duplicate work within one stream.  The cache
+    lookup is inlined (rather than delegated to :func:`cached_decompose`)
+    so each op pays for exactly ONE signature computation, and once the
+    stream's distinct-shape count exceeds the cache bound the global
+    get/put traffic stops: every further put would only evict an earlier
+    key of the SAME stream (pure churn -- cross-call reuse for such a
+    stream was already lost to eviction), so the local map carries the
+    rest alone."""
+    cache = _SCHEDULE_CACHE if cache is None else cache
+    local: dict = {}
+    out: list[CollectiveSchedule] = []
+    spilled = False
+    for op in ops:
+        key = op_signature(op, algorithm, topo)
+        if key is None:
+            out.append(decompose(op, algorithm, topo, warn=warn))
+            continue
+        sched = local.get(key)
+        if sched is None:
+            hit = None if spilled else cache.get(key)
+            if hit is not None:
+                sched, fallbacks = hit
+                if warn:
+                    for kind, n, msg in fallbacks:
+                        warn_fallback_once(kind, n, msg, stacklevel=1)
+            else:
+                records: list = []
+                sched = decompose(op, algorithm, topo, warn=warn,
+                                  _fallbacks=records)
+                if not spilled:
+                    cache.put(key, (sched, tuple(records)))
+            local[key] = sched
+            spilled = spilled or len(local) >= cache.maxsize
+        out.append(sched)
+    return out
+
+
+class ScheduleBatch:
+    """Columnar view over one op stream's schedules.
+
+    Flat float64/bool/intp arrays across ALL phases of all ops --
+    ``op_index`` / ``stream`` / ``is_dcn`` / ``max_bytes`` / ``hops``
+    laid out op-major in schedule order, with ``op_phase_ptr`` (CSR-style,
+    ``nops + 1``) delimiting each op's slice -- so timing and billing run
+    as array expressions instead of per-phase Python.  ``schedules``
+    holds the (deduped, shared) schedule objects aligned with ``ops``;
+    ``edge_cache`` is the per-batch ``id(schedule) -> edge arrays`` memo
+    ``comm_matrix`` fills, so the matrix build also pays per *distinct*
+    schedule.  Every derived quantity is BITWISE identical to the per-op
+    path: phase seconds use the same scalar expression elementwise,
+    per-(op, stream, tier) sums run through unbuffered ``np.add.at`` in
+    phase order (the exact float-addition sequence of the Python loop),
+    and weighted totals reduce through a sequential Python sum.
+    """
+
+    __slots__ = ("ops", "algorithm", "topo", "schedules", "weight",
+                 "op_index", "stream", "is_dcn", "max_bytes", "hops",
+                 "op_phase_ptr", "edge_cache")
+
+    def __init__(self, ops, schedules, algorithm: Optional[str] = None,
+                 topo: Optional[MeshTopology] = None):
+        self.ops = list(ops)
+        self.schedules = list(schedules)
+        if len(self.ops) != len(self.schedules):
+            raise ValueError(
+                f"{len(self.ops)} ops vs {len(self.schedules)} schedules")
+        self.algorithm = algorithm
+        self.topo = topo
+        self.weight = np.asarray(
+            [max(1.0, float(getattr(op, "weight", 1.0)))
+             for op in self.ops], dtype=np.float64)
+        self.edge_cache: dict = {}
+        cols: dict = {}          # id(sched) -> per-phase column template
+        op_idx, streams, dcn, mb, hops = [], [], [], [], []
+        ptr = [0]
+        total = 0
+        for i, sched in enumerate(self.schedules):
+            tmpl = cols.get(id(sched))
+            if tmpl is None:
+                k = len(sched.phases)
+                tmpl = cols[id(sched)] = (
+                    np.fromiter((ph.stream for ph in sched.phases),
+                                dtype=np.intp, count=k),
+                    np.fromiter((ph.tier == "dcn" for ph in sched.phases),
+                                dtype=bool, count=k),
+                    np.fromiter((ph.max_bytes_per_rank()
+                                 for ph in sched.phases),
+                                dtype=np.float64, count=k),
+                    np.fromiter((ph.latency_hops for ph in sched.phases),
+                                dtype=np.float64, count=k),
+                )
+            k = tmpl[0].size
+            op_idx.append(np.full(k, i, dtype=np.intp))
+            streams.append(tmpl[0])
+            dcn.append(tmpl[1])
+            mb.append(tmpl[2])
+            hops.append(tmpl[3])
+            total += k
+            ptr.append(total)
+        if total:
+            self.op_index = np.concatenate(op_idx)
+            self.stream = np.concatenate(streams)
+            self.is_dcn = np.concatenate(dcn)
+            self.max_bytes = np.concatenate(mb)
+            self.hops = np.concatenate(hops)
+        else:
+            self.op_index = np.empty(0, dtype=np.intp)
+            self.stream = np.empty(0, dtype=np.intp)
+            self.is_dcn = np.empty(0, dtype=bool)
+            self.max_bytes = np.empty(0, dtype=np.float64)
+            self.hops = np.empty(0, dtype=np.float64)
+        self.op_phase_ptr = np.asarray(ptr, dtype=np.intp)
+
+    @classmethod
+    def from_ops(cls, ops, algorithm: str,
+                 topo: Optional[MeshTopology] = None, *,
+                 warn: bool = False,
+                 cache: Optional[BoundedCache] = None) -> "ScheduleBatch":
+        ops = list(ops)
+        scheds = schedules_for_ops(ops, algorithm, topo, warn=warn,
+                                   cache=cache)
+        return cls(ops, scheds, algorithm, topo)
+
+    def __len__(self) -> int:
+        return len(self.ops)
+
+    @property
+    def num_phases(self) -> int:
+        return int(self.op_index.size)
+
+    @property
+    def num_distinct(self) -> int:
+        """Distinct schedule objects (the work actually decomposed)."""
+        return len({id(s) for s in self.schedules})
+
+    def phase_slice(self, i: int) -> slice:
+        """Column slice of op ``i``'s phases (aligned with
+        ``self.schedules[i].phases``)."""
+        return slice(int(self.op_phase_ptr[i]), int(self.op_phase_ptr[i + 1]))
+
+    def phase_seconds(self, topo: Optional[MeshTopology] = None, *,
+                      include_latency: bool = True) -> np.ndarray:
+        """Per-phase streaming seconds, columnar: elementwise the exact
+        scalar expression of :meth:`CommPhase.seconds`."""
+        topo = self.topo if topo is None else topo
+        if topo is None:
+            raise ValueError("phase_seconds needs a topology")
+        bw = np.where(self.is_dcn, topo.ring_bw_per_chip(True),
+                      topo.ring_bw_per_chip(False))
+        sec = self.max_bytes / bw
+        if include_latency:
+            lat = np.where(self.is_dcn, topo.hw.dcn_hop_latency_s,
+                           topo.hw.ici_hop_latency_s)
+            sec = sec + self.hops * lat
+        return sec
+
+    def time_split_per_op(self, topo: Optional[MeshTopology] = None, *,
+                          include_latency: bool = True
+                          ) -> tuple[np.ndarray, np.ndarray]:
+        """``(ici, dcn)`` seconds per op for ONE execution -- the columnar
+        :meth:`CollectiveSchedule.time_split`: phases of one stream sum
+        (sequentially, in phase order), tiers take the max over streams."""
+        nops = len(self.ops)
+        ici = np.zeros(nops, dtype=np.float64)
+        dcn = np.zeros(nops, dtype=np.float64)
+        if self.op_index.size == 0:
+            return ici, dcn
+        sec = self.phase_seconds(topo, include_latency=include_latency)
+        # compact (op, stream) ids; streams are per-op counters < 2**31
+        pair = (self.op_index.astype(np.int64) << 31) \
+            | self.stream.astype(np.int64)
+        uniq, inv = np.unique(pair, return_inverse=True)
+        acc = np.zeros((uniq.size, 2), dtype=np.float64)
+        # np.add.at is unbuffered: within each (op, stream, tier) cell the
+        # additions land in array order == phase order, reproducing the
+        # per-op Python accumulation bitwise
+        np.add.at(acc, (inv, self.is_dcn.astype(np.intp)), sec)
+        op_of = (uniq >> 31).astype(np.intp)
+        np.maximum.at(ici, op_of, acc[:, 0])
+        np.maximum.at(dcn, op_of, acc[:, 1])
+        return ici, dcn
+
+    def total_time_split(self, topo: Optional[MeshTopology] = None, *,
+                         include_latency: bool = True
+                         ) -> tuple[float, float]:
+        """Weighted ``(ici, dcn)`` totals over the stream.  The final
+        reduction is a sequential Python sum in op order -- numpy's
+        pairwise ``sum`` is faster but not bitwise-equal to the per-op
+        accumulation loop this replaces."""
+        ici_arr, dcn_arr = self.time_split_per_op(
+            topo, include_latency=include_latency)
+        iw = ici_arr * self.weight
+        dw = dcn_arr * self.weight
+        ici = 0.0
+        dcn = 0.0
+        for a, b in zip(iw.tolist(), dw.tolist()):
+            ici += a
+            dcn += b
+        return ici, dcn

@@ -3,13 +3,17 @@
 
 Writes schema ``repro.comm_report.v9`` in the reference's spelling, so the
 reference's ``report_from_dict`` loads the port's files, and loads every
-schema the reference accepts (v1 ... v9).  The optional ``hlo_gz``,
-``schedules`` and ``lint`` sections are not written (the port has no
-compiled module, and its schedule and lint exports wait for later slices);
-the derived ``links`` / ``overlap`` sections likewise wait for the port's
-link slice.  All of them are derived or optional, so the reference loads
-the port's files without them, and the port ignores them when it loads the
-reference's.
+schema the reference accepts (v1 ... v9).  Matrices are dense nested lists,
+or for a sparse report the schema-v6 COO dict ``{"format": "coo", "side",
+"src", "dst", "val"}``; loading restores the same representation.  Reports
+with a topology carry the derived v2/v3 physical-link sections
+(``link_matrix``, ``links``, ``link_summary``, ``link_tiers``) and the
+``overlap`` section; a sparse report omits the O(d^2) ``link_matrix`` and
+keeps only the ``links`` rows that carried bytes, as the reference does.
+The optional ``hlo_gz``, ``schedules`` and ``lint`` sections are not
+written (the port has no compiled module, and its lint waits for a later
+slice).  Derived and optional sections are not restored on load, so the
+reference loads the port's files and the port loads the reference's.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import numpy as np
 
 from ..events import (CollectiveOp, HostTransfer, PhaseRecord, Shape,
                       TraceEvent)
+from ..sparse import SparseCommMatrix, is_sparse
 from ..topology import HardwareSpec, MeshTopology
 
 SCHEMA = "repro.comm_report.v9"
@@ -158,19 +163,36 @@ def topo_from_dict(d: Optional[dict]) -> Optional[MeshTopology]:
 
 
 # ---------------------------------------------------------------------------
-# matrices: dense nested lists
+# matrices: dense nested-list vs sparse COO dict (schema v6)
 # ---------------------------------------------------------------------------
-def matrix_to_jsonable(mat) -> list:
+def matrix_to_jsonable(mat):
+    """Dense ndarray -> nested list; sparse :class:`SparseCommMatrix` ->
+    ``{"format": "coo", ...}`` dict whose size is O(nnz), never O(d^2)."""
+    if is_sparse(mat):
+        return {
+            "format": "coo",
+            "side": mat.side,
+            "src": mat.src.tolist(),
+            "dst": mat.dst.tolist(),
+            "val": mat.val.tolist(),
+        }
     return np.asarray(mat).tolist()
 
 
-def matrix_from_jsonable(j) -> np.ndarray:
-    """Dense nested list -> float64 array.  The COO dict form (schema v6,
-    fleet-scale reports) waits for the port's sparse slice."""
+def matrix_from_jsonable(j):
+    """The inverse: the COO dict form restores a ``SparseCommMatrix``
+    (already coalesced on write), anything else the dense float64 array."""
     if isinstance(j, dict):
-        raise NotImplementedError(
-            "sparse (COO) report matrices wait for the port's sparse-engine "
-            "slice")
+        fmt = j.get("format")
+        if fmt != "coo":
+            raise ValueError(f"unknown matrix format {fmt!r}; expected 'coo'")
+        return SparseCommMatrix(
+            int(j["side"]) - 1,
+            np.asarray(j["src"], dtype=np.int64),
+            np.asarray(j["dst"], dtype=np.int64),
+            np.asarray(j["val"], dtype=np.float64),
+            coalesced=True,
+        )
     return np.asarray(j, dtype=np.float64)
 
 
@@ -182,9 +204,40 @@ def _jsonable_cost(cost: dict) -> dict:
             if isinstance(v, (int, float))}
 
 
+def _link_section(report) -> dict:
+    """Schema v2+v3 physical-link view (empty when the report has no topo).
+
+    For sparse (fleet-scale) reports the dense ``link_matrix`` is omitted
+    -- it is the same O(d^2) array the sparse path avoids -- and ``links``
+    keeps only the rows that actually carried bytes; both are derived
+    data, recomputed from ``ops`` + ``topo`` on load either way.
+    """
+    lu = report.link_utilization() if report.topo is not None else None
+    if lu is None:
+        return {}
+    out = {} if is_sparse(report.matrix) else {
+        "link_matrix": lu.matrix().tolist()}
+    rows = lu.rows()
+    if is_sparse(report.matrix):
+        rows = [r for r in rows if r["bytes"] > 0]
+    ici_s, dcn_s = report.collective_seconds_split()
+    out.update({
+        "links": rows,
+        "link_summary": lu.summary(),
+        "link_tiers": lu.tier_summary(),
+        "overlap": {
+            "collective_ici_s": ici_s,
+            "collective_dcn_s": dcn_s,
+            "collective_overlap_s": max(ici_s, dcn_s),
+            "collective_serial_s": ici_s + dcn_s,
+        },
+    })
+    return out
+
+
 def report_to_dict(report) -> dict:
     """``CommReport`` -> JSON-serializable dict (schema ``v9``)."""
-    out = {"schema": SCHEMA}
+    out = {"schema": SCHEMA, **_link_section(report)}
     if report.trace_meta:
         out["trace_meta"] = dict(report.trace_meta)
     out.update({
@@ -214,8 +267,8 @@ def report_from_dict(d: dict):
     """Dict (schema ``v1`` ... ``v9``) -> ``CommReport``.
 
     Derived sections (links, overlap, schedules) are not restored: the
-    report's views recompute what the port supports from ``ops`` +
-    ``topo``.  ``hlo_gz`` and ``lint`` are ignored.
+    report's views recompute them from ``ops`` + ``topo``.  ``hlo_gz`` and
+    ``lint`` are ignored.
     """
     from ..monitor import CommReport  # deferred: monitor imports this module
 

@@ -13,6 +13,24 @@ redistribution on a non-CPU mesh, which reaches no ``c10d`` op under
 of them as it runs: its kind, per-device result shapes and dtype, and the
 replica groups of the mesh dimension it ran on.
 
+Point-to-point transfers (``c10d.send`` / ``c10d.recv_``, which
+``dist.send``, ``dist.recv`` and ``batch_isend_irecv`` reach) are recorded
+as the reference records ``ppermute``: one SendRecv, a
+``collective-permute`` whose ``source_target_pairs`` cover the whole group.
+A capture runs one rank, so the pairs come from its peer under the SPMD
+reading that every rank issues the same shift: a send to group rank
+``dst`` from group rank ``rank`` gives ``(r, (r + dst - rank) mod n)`` for
+every ``r``, in every group of the mesh dimension.  A send and a recv of
+the same shift, group and shape are one transfer (a ring step), so the
+second of the two adds nothing.
+
+The rooted collectives (``c10d.reduce_``, ``gather_``, ``scatter_``) are
+recorded as trace events under their NCCL names (Reduce, Gather, Scatter)
+and give no op: the schedule IR has no rooted kind, as the reference's HLO
+kinds have none (its ``pgather`` is a Gather trace event that gives no
+compiled op).  Each kind warns once per interceptor that it was left out of
+the op stream.
+
 When a DTensor is involved the mode steps aside (``NotImplemented``) so
 DTensor first lowers the op to local ops and collectives, which then reach
 the mode -- so resharding the program never asked for is recorded too, the
@@ -23,6 +41,8 @@ from __future__ import annotations
 
 import itertools
 import math
+import warnings
+from collections import Counter
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -57,6 +77,11 @@ _C10D = {
     "alltoall_": ("all-to-all", "AllToAll"),
     "alltoall_base_": ("all-to-all", "AllToAll"),
     "broadcast_": ("collective-broadcast", "Broadcast"),
+    "send": ("collective-permute", "SendRecv"),
+    "recv_": ("collective-permute", "SendRecv"),
+    "reduce_": (None, "Reduce"),
+    "gather_": (None, "Gather"),
+    "scatter_": (None, "Scatter"),
 }
 _DTENSOR = {
     "shard_dim_alltoall": ("all-to-all", "AllToAll"),
@@ -123,6 +148,10 @@ class CollectiveInterceptor(TorchDispatchMode):
         self.events: list[TraceEvent] = []
         self.ops: list[CollectiveOp] = []
         self._groups: dict[str, tuple[str, list[list[int]]]] = {}
+        # point-to-point records still waiting for their other side:
+        # direction -> (axis, shift, shape) -> count
+        self._unpaired = {"send": Counter(), "recv_": Counter()}
+        self._warned: set[str] = set()
         self._dims: list[tuple[str, list[list[int]]]] = []
         if mesh is not None:
             from torch._subclasses.fake_tensor import unset_fake_temporarily
@@ -174,6 +203,12 @@ class CollectiveInterceptor(TorchDispatchMode):
         hlo_kind, nccl = kind
         axis, groups = self._groups_of(_group_name(func, args, kwargs))
         name = func._overloadpacket.__name__
+        if name in ("send", "recv_"):
+            self._record_p2p(func, name, args, axis, groups)
+            return
+        if hlo_kind is None:
+            self._record_rooted(func, name, nccl, args, axis, groups)
+            return
         if func.namespace in ("_c10d_functional", "_dtensor"):
             inputs = _tensors(args[0])
             results = [torch_shape(t) for t in _tensors(out)]
@@ -200,6 +235,58 @@ class CollectiveInterceptor(TorchDispatchMode):
             result_shapes=results,
             replica_groups=[list(g) for g in groups],
             op_name=f"{func.namespace}.{name}[{axis}]"))
+
+    def _record_p2p(self, func, name, args, axis, groups) -> None:
+        """``send(tensors, pg, dst, tag)`` / ``recv_(tensors, pg, src,
+        tag)``, ``dst``/``src`` a group rank: one SendRecv per transfer."""
+        import torch.distributed as dist
+        from torch.distributed.distributed_c10d import ProcessGroup
+
+        (t,) = _tensors(args[0])
+        pg = args[1]
+        if not isinstance(pg, ProcessGroup):
+            pg = ProcessGroup.unbox(pg)
+        n = len(groups[0])
+        rank = dist.get_rank(pg)
+        peer = int(args[2])
+        shift = (peer - rank) % n if name == "send" else (rank - peer) % n
+        shape = torch_shape(t)
+        key = (axis, shift, shape.dtype, shape.dims)
+        other = "recv_" if name == "send" else "send"
+        if self._unpaired[other][key]:
+            self._unpaired[other][key] -= 1    # the other half of a transfer
+            return
+        self._unpaired[name][key] += 1
+        ev = TraceEvent(primitive=name, axis_name=axis, arg_shapes=[shape],
+                        axis_size=n)
+        ev.nccl_name = "SendRecv"
+        self.events.append(ev)
+        self.ops.append(CollectiveOp(
+            kind="collective-permute",
+            name=f"{name}.{len(self.ops)}",
+            result_shapes=[shape],
+            replica_groups=[],
+            source_target_pairs=[(g[i], g[(i + shift) % n])
+                                 for g in groups for i in range(n)],
+            op_name=f"{func.namespace}.{name}[{axis}]"))
+
+    def _record_rooted(self, func, name, nccl, args, axis, groups) -> None:
+        """``reduce_(tensors, ...)``, ``gather_(outputs, inputs, ...)``,
+        ``scatter_(outputs, inputs, ...)``: a trace event of what one rank
+        contributes (reduce, gather) or receives (scatter), and no op."""
+        part = args[1] if name == "gather_" else args[0]
+        ev = TraceEvent(primitive=name, axis_name=axis,
+                        arg_shapes=[torch_shape(t) for t in _tensors(part)],
+                        axis_size=len(groups[0]))
+        ev.nccl_name = nccl
+        self.events.append(ev)
+        if name not in self._warned:
+            self._warned.add(name)
+            warnings.warn(
+                f"{func.namespace}.{name} ({nccl}) is recorded as a trace "
+                "event only: the schedule IR has no rooted collective, so "
+                "it adds no op to the matrices or the modeled times",
+                stacklevel=2)
 
 
 def _concat_shape(parts: list[torch.Tensor]) -> Shape:

@@ -27,6 +27,7 @@ import numpy as np
 
 from . import cost_models, reporter
 from .events import CollectiveOp, HostTransfer, PhaseRecord, TraceEvent
+from .sparse import is_sparse
 from .topology import MeshTopology
 from .views import CommView, build_view
 
@@ -48,7 +49,9 @@ class CommReport:
     compiled_ops: list[CollectiveOp]
     traced_summary: dict
     compiled_summary: dict
-    matrix: np.ndarray                  # (d+1)x(d+1) bytes, row/col 0 host
+    # (d+1)x(d+1) bytes, row/col 0 host: a dense ndarray, or the COO
+    # SparseCommMatrix form at fleet scale (sparse sessions / loaded v6)
+    matrix: np.ndarray
     per_primitive: dict[str, np.ndarray]
     cost: dict
     memory_stats: Optional[dict]
@@ -75,7 +78,10 @@ class CommReport:
             v = build_view(
                 self.compiled_ops, self.num_devices, alg, self.topo,
                 self.host_transfers, phase=phase,
-                known_phases=self.phase_names(), label=self.name)
+                known_phases=self.phase_names(), label=self.name,
+                # a sparse snapshot keeps every binding sparse; dense ones
+                # leave the per-binding cutover in charge
+                sparse=True if is_sparse(self.matrix) else None)
             if phase is None and alg == self.algorithm:
                 v._memo.update(matrix=self.matrix,
                                per_primitive=self.per_primitive,
@@ -138,6 +144,36 @@ class CommReport:
         """Per-tier serialized collective time ``(ici_s, dcn_s)``."""
         return self.view(algorithm).collective_seconds_split()
 
+    # -- physical-link view ------------------------------------------------
+    def link_utilization(self, algorithm: Optional[str] = None):
+        """The matrix projected onto physical links (ICI hops, DCN
+        uplinks): a :class:`~repro_torch.core.comm_matrix.LinkUtilization`,
+        or ``None`` without a topology.  Derived from the ops, so loaded
+        reports have it too."""
+        return self.view(algorithm).link_utilization()
+
+    def link_matrix(self, algorithm: Optional[str] = None):
+        """The ``(d+1)^2`` per-link byte matrix: entry ``(i+1, j+1)`` is the
+        physical ICI link ``i -> j``; row/col 0 is the DCN tier.  ``None``
+        without a topology."""
+        return self.view(algorithm).link_matrix()
+
+    def link_seconds(self, algorithm: Optional[str] = None) -> float:
+        """Contention-aware communication time: the bottleneck link's
+        bytes/bandwidth."""
+        return self.view(algorithm).link_seconds()
+
+    def link_table(self) -> str:
+        lu = self.link_utilization()
+        if lu is None:
+            return "(no topology: pass mesh= to the monitor for link stats)"
+        ici_s, dcn_s = self.collective_seconds_split()
+        overlap = (f"tier overlap: ici {ici_s * 1e3:.3f} ms ∥ dcn "
+                   f"{dcn_s * 1e3:.3f} ms -> overlapped "
+                   f"{max(ici_s, dcn_s) * 1e3:.3f} ms "
+                   f"(serialized {(ici_s + dcn_s) * 1e3:.3f} ms)")
+        return lu.table() + "\n" + overlap
+
     def render(self) -> str:
         parts = [
             f"### CommReport: {self.name} ({self.num_devices} devices) ###",
@@ -147,6 +183,8 @@ class CommReport:
         if len(self.phase_names()) >= 2:
             parts.append(self.phase_table())
         parts += ["-- traced vs issued --", self.diff(), self.heatmap()]
+        if self.topo is not None:
+            parts.append("-- physical links --\n" + self.link_table())
         parts.append(
             f"trace {self.trace_seconds * 1e3:.1f} ms | "
             f"wire bytes (all devices) "

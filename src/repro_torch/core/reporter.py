@@ -114,8 +114,14 @@ def coarsen_matrix(mat, max_devices: int = 32) -> tuple[np.ndarray, int]:
     ``max_devices`` rows/cols (host row/col 0 stays exact).
 
     Returns ``(matrix, block)`` where ``block`` is the number of devices per
-    aggregated row (1 when no coarsening happened).
+    aggregated row (1 when no coarsening happened).  Accepts the dense array
+    or a :class:`~repro_torch.core.sparse.SparseCommMatrix`, coarsened
+    straight from its COO entries (the fleet-scale path never builds the
+    dense form).
     """
+    from .sparse import SparseCommMatrix
+    if isinstance(mat, SparseCommMatrix):
+        return mat.coarsen(max_devices)
     m = np.asarray(mat, dtype=np.float64)
     d = m.shape[0]
     if d <= max_devices + 1:

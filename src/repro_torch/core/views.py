@@ -1,25 +1,26 @@
 """Lazy, memoized algorithm-bound views of a collective-op stream (port of
-``repro.core.views``, dense only).
+``repro.core.views``).
 
 A :class:`CommView` owns ONE ``(algorithm, topology)`` binding of a set of
-ops and every artifact derived from it -- the ``(d+1)^2`` matrix,
-per-primitive matrices, the Table-2/3 summary, per-tier collective seconds.
-Each artifact is computed on first access and memoized: bind once, read
-many.  ``view.rebind("tree")`` shares the op list and recomputes nothing
-until an artifact is read.
+ops and every artifact derived from it -- the ``(d+1)^2`` matrix (dense, or
+COO above :data:`~repro_torch.core.sparse.SPARSE_DEVICE_THRESHOLD`
+devices), per-primitive matrices, the Table-2/3 summary, link utilization,
+per-tier collective seconds and their overlap bound.  Each artifact is
+computed on first access and memoized: bind once, read many.
+``view.rebind("tree")`` shares the op list and recomputes nothing until an
+artifact is read.  Every timing reads one columnar
+:class:`~repro_torch.core.decompose.ScheduleBatch`, as the reference's
+views do.
 """
 from __future__ import annotations
 
 from typing import Iterable, Optional
 
 from . import comm_matrix, cost_models, summary as summary_mod
-from .decompose import decompose
+from .decompose import ScheduleBatch
 from .events import CollectiveOp, HostTransfer
+from .sparse import SPARSE_DEVICE_THRESHOLD
 from .topology import MeshTopology
-
-# The reference switches to its COO matrix above this many devices; the
-# port's sparse form waits for a later slice, so it refuses those sizes.
-DENSE_DEVICE_LIMIT = 2048
 
 
 def build_view(ops, num_devices: int, algorithm: str,
@@ -28,10 +29,13 @@ def build_view(ops, num_devices: int, algorithm: str,
                sparse: Optional[bool] = None):
     """Construct the :class:`CommView` for one ``(algorithm, phase)``
     binding -- the shared filter/validation behind both
-    ``MonitorSession.view`` and ``CommReport.view``.
+    ``MonitorSession.view`` and ``CommReport.view`` (one implementation,
+    so session and snapshot views cannot diverge).
 
     ``phase=None`` binds everything; a named phase filters ops and host
     transfers by their tag and must be one of ``known_phases``.
+    ``sparse`` is the matrix-representation mode (None = auto by device
+    count, see :class:`CommView`).
     """
     if phase is not None:
         known = list(known_phases)
@@ -47,8 +51,12 @@ def build_view(ops, num_devices: int, algorithm: str,
 
 class CommView:
     """One ``(ops, algorithm, topology)`` binding; every derived artifact
-    lazy and memoized (hand-outs are by reference: treat them as
-    read-only)."""
+    lazy and memoized.
+
+    The view never mutates its inputs: ``rebind`` shares the same op list
+    under a different algorithm with a fresh memo, and the memoized arrays
+    are handed out by reference (treat them as read-only).
+    """
 
     def __init__(self, ops: Iterable[CollectiveOp], num_devices: int, *,
                  algorithm: str = "ring",
@@ -56,18 +64,24 @@ class CommView:
                  host_transfers: Iterable[HostTransfer] = (),
                  label: str = "", sparse: Optional[bool] = None):
         cost_models.validate_algorithm(algorithm)
-        if sparse or num_devices > DENSE_DEVICE_LIMIT:
-            raise NotImplementedError(
-                f"sparse matrices ({num_devices} devices, sparse={sparse}) "
-                "wait for the port's sparse-engine slice; the dense view "
-                f"covers up to {DENSE_DEVICE_LIMIT} devices")
         self.ops = list(ops)
         self.num_devices = int(num_devices)
         self.algorithm = algorithm
         self.topo = topo
         self.host_transfers = list(host_transfers)
         self.label = label
+        # matrix representation: True = COO SparseCommMatrix, False =
+        # dense ndarray, None = auto (sparse above the device-count
+        # cutover -- the dense array is O(d^2) memory)
+        self.sparse = sparse
         self._memo: dict = {}
+
+    @property
+    def use_sparse(self) -> bool:
+        """The resolved matrix representation for this view."""
+        if self.sparse is None:
+            return self.num_devices > SPARSE_DEVICE_THRESHOLD
+        return bool(self.sparse)
 
     def __repr__(self) -> str:
         tag = f" {self.label!r}" if self.label else ""
@@ -85,15 +99,22 @@ class CommView:
             return self
         return CommView(self.ops, self.num_devices, algorithm=algorithm,
                         topo=self.topo, host_transfers=self.host_transfers,
-                        label=self.label)
+                        label=self.label, sparse=self.sparse)
 
     # -- byte accounting ---------------------------------------------------
     @property
     def matrix(self):
-        """``(d+1)^2`` bytes-sent matrix (host transfers in row/col 0)."""
+        """``(d+1)^2`` bytes-sent matrix (host transfers in row/col 0).
+
+        A dense ``np.ndarray`` or, when :attr:`use_sparse` resolves true,
+        the byte-identical COO :class:`~repro_torch.core.sparse.
+        SparseCommMatrix` -- every downstream consumer (link projection,
+        heatmaps, serialization) accepts both.
+        """
         def build():
             mat = comm_matrix.matrix_for_schedules(
-                self.ops, self.schedules(), self.num_devices)
+                self.ops, self.schedule_batch(), self.num_devices,
+                sparse=self.use_sparse)
             if self.host_transfers:
                 comm_matrix.add_host_transfers(mat, self.host_transfers)
             return mat
@@ -104,8 +125,8 @@ class CommView:
         """Paper Fig. 3: one matrix per collective primitive."""
         def build():
             return {k: comm_matrix.matrix_for_schedules(
-                        self.ops, self.schedules(), self.num_devices,
-                        kinds={k})
+                        self.ops, self.schedule_batch(), self.num_devices,
+                        kinds={k}, sparse=self.use_sparse)
                     for k in sorted({op.kind for op in self.ops})}
         return self._cached("per_primitive", build)
 
@@ -122,12 +143,27 @@ class CommView:
                                          topo=self.topo)))
 
     # -- decomposition schedules -------------------------------------------
+    def schedule_batch(self) -> ScheduleBatch:
+        """The columnar :class:`~repro_torch.core.decompose.ScheduleBatch`
+        over this binding's ops -- deduped by op signature (``decompose``
+        runs once per *distinct shape*, not once per op), memoized, and
+        shared by every derived artifact: :attr:`matrix` /
+        :attr:`per_primitive` reuse its per-schedule edge cache, the time
+        models read its flat phase columns.  Built with fallback warnings
+        on, like the placement always warned."""
+        return self._cached("schedule_batch", lambda: (
+            ScheduleBatch.from_ops(self.ops, self.algorithm, self.topo,
+                                   warn=True)))
+
     def schedules(self) -> list:
         """One :class:`~repro_torch.core.decompose.CollectiveSchedule` per
-        op (aligned with ``self.ops``), decomposed with fallback warnings
-        on, like the placement always warned."""
-        return self._cached("schedules", lambda: [
-            decompose(op, self.algorithm, self.topo) for op in self.ops])
+        op (aligned with ``self.ops``; ops sharing a signature share one
+        schedule object) -- the phase IR every derived artifact reads."""
+        return self.schedule_batch().schedules
+
+    def schedule_summaries(self) -> list[dict]:
+        """Serializable per-op schedule summaries (schema-v5 section)."""
+        return [sched.summary() for sched in self.schedules()]
 
     # -- time models -------------------------------------------------------
     def collective_seconds(self) -> float:
@@ -137,32 +173,44 @@ class CommView:
 
     def collective_seconds_split(self) -> tuple[float, float]:
         """Per-tier serialized collective time ``(ici_s, dcn_s)``,
-        execution-weighted: per-op ``time_split`` times ``max(1, weight)``
-        summed in op order -- the reference's columnar ``ScheduleBatch``
-        reduces in the same order, so the two are bitwise equal."""
+        execution-weighted, summed over the memoized schedules."""
         def build():
             if self.topo is None:
                 return 0.0, 0.0
-            ici = 0.0
-            dcn = 0.0
-            for op, sched in zip(self.ops, self.schedules()):
-                i, d = sched.time_split(self.topo)
-                w = max(1.0, float(getattr(op, "weight", 1.0)))
-                ici += i * w
-                dcn += d * w
-            return ici, dcn
+            return self.schedule_batch().total_time_split(self.topo)
         return self._cached("seconds_split", build)
 
+    def collective_overlap_seconds(self) -> float:
+        """Tier-overlapped communication time: ``max(ici_s, dcn_s)``."""
+        return max(self.collective_seconds_split())
+
     def op_seconds(self) -> list:
-        """Modeled seconds per op (aligned with ``self.ops``): the op's
-        serialized schedule time times its execution weight; ``None``
-        entries without a topology."""
+        """Modeled seconds per op (aligned with ``self.ops``): each entry
+        is the op's serialized schedule time -- ``sum(time_split)`` --
+        times its execution weight.  ``None`` entries without a topology
+        (no time model)."""
         def build():
             if self.topo is None:
                 return [None] * len(self.ops)
-            out = []
-            for op, sched in zip(self.ops, self.schedules()):
-                i, d = sched.time_split(self.topo)
-                out.append((i + d) * max(1.0, float(op.weight)))
-            return out
+            batch = self.schedule_batch()
+            ici, dcn = batch.time_split_per_op(self.topo)
+            return ((ici + dcn) * batch.weight).tolist()
         return self._cached("op_seconds", build)
+
+    # -- physical-link view ------------------------------------------------
+    def link_utilization(self):
+        """Per-physical-link byte counts (None without a topology)."""
+        def build():
+            if self.topo is None:
+                return None
+            return comm_matrix.project_links(self.matrix, self.topo)
+        return self._cached("link_utilization", build)
+
+    def link_matrix(self):
+        lu = self.link_utilization()
+        return None if lu is None else lu.matrix()
+
+    def link_seconds(self) -> float:
+        """Contention-aware bound: the bottleneck link's bytes/bandwidth."""
+        lu = self.link_utilization()
+        return 0.0 if lu is None else lu.bottleneck_seconds()

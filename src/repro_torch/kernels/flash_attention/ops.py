@@ -2,14 +2,16 @@
 tensors, the plain version (:func:`.ref.attention_ref`) for CPU tensors.
 
 ``attend`` is the call-site of the port's transformer prefill; ``launches``
-counts kernel launches (only the CUDA branch adds to it).
+counts kernel launches (only the CUDA branch adds to it).  The backward
+recomputes through the plain version (:func:`.ref.attention_bwd`) on either
+device, as the reference differentiates its XLA path.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import build
-from .ref import attention_ref
+from .ref import attention_bwd, attention_ref
 
 launches = 0
 MAX_HEAD_DIM = 256
@@ -44,6 +46,20 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 @_flash_attention.register_fake
 def _(q, k, v, causal, window, q_offset):
     return torch.empty_like(q)
+
+
+def _setup(ctx, inputs, output):
+    q, k, v, ctx.causal, ctx.window, ctx.q_offset = inputs
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, do):
+    q, k, v = ctx.saved_tensors
+    return (*attention_bwd(do, q, k, v, causal=ctx.causal, window=ctx.window,
+                           q_offset=ctx.q_offset), None, None, None)
+
+
+_flash_attention.register_autograd(_backward, setup_context=_setup)
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

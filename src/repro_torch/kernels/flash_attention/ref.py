@@ -27,3 +27,16 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def attention_bwd(do: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, *, causal: bool = True, window: int = 0,
+                  q_offset: int = 0):
+    """``(dq, dk, dv)`` of :func:`attention_ref` for the output cotangent
+    ``do``: autograd through the plain version, recomputed (the full score
+    matrix in fp32, as the reference differentiates its XLA path)."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+        o = attention_ref(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+        return torch.autograd.grad(o, (q, k, v), do)

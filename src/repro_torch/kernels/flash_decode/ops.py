@@ -5,14 +5,16 @@ plain version (:func:`.ref.decode_ref`) for CPU tensors.
 ``cache_len`` stays a device tensor: the kernels read it, the host never
 does; the number of splits comes from the shapes and the card alone
 (:func:`num_splits`).  ``launches`` counts calls that launched the kernels
-(only the CUDA branch adds to it).
+(only the CUDA branch adds to it).  The backward recomputes through the
+plain version (:func:`.ref.decode_bwd`) on either device; ``cache_len``
+takes no gradient.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import build
-from .ref import decode_ref
+from .ref import decode_bwd, decode_ref
 
 launches = 0
 MAX_GROUP_WIDTH = 2560      # G * dh outputs per CTA (csrc NACC * THREADS)
@@ -70,6 +72,20 @@ def _flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 @_flash_decode.register_fake
 def _(q, k_cache, v_cache, cache_len, window):
     return torch.empty_like(q)
+
+
+def _setup(ctx, inputs, output):
+    q, k_cache, v_cache, cache_len, ctx.window = inputs
+    ctx.save_for_backward(q, k_cache, v_cache, cache_len)
+
+
+def _backward(ctx, do):
+    q, k_cache, v_cache, cache_len = ctx.saved_tensors
+    return (*decode_bwd(do, q, k_cache, v_cache, cache_len,
+                        window=ctx.window), None, None)
+
+
+_flash_decode.register_autograd(_backward, setup_context=_setup)
 
 
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,

@@ -27,6 +27,18 @@ def decode_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, h, dh).to(q.dtype)
 
 
+def decode_bwd(do: torch.Tensor, q: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, cache_len, *, window: int = 0):
+    """``(dq, dk_cache, dv_cache)`` of :func:`decode_ref` for the output
+    cotangent ``do`` (``cache_len`` takes none): autograd through the plain
+    version, recomputed."""
+    with torch.enable_grad():
+        q, k_cache, v_cache = (t.detach().requires_grad_()
+                               for t in (q, k_cache, v_cache))
+        o = decode_ref(q, k_cache, v_cache, cache_len, window=window)
+        return torch.autograd.grad(o, (q, k_cache, v_cache), do)
+
+
 def split_range(cache_len: int, lmax: int, window: int, nsplit: int,
                 s: int) -> tuple[int, int]:
     """Keys ``[lo, hi)`` of split ``s``, as the split kernel takes them: the

@@ -3,7 +3,8 @@ tensors, the plain version (:func:`.ref.rglru_ref`) for CPU tensors.
 
 The scan is elementwise over D, so under a mesh the model runs it on local
 shards (an ``rnn``-sharded D needs no collective).  ``launches`` counts
-kernel launches (only the CUDA branch adds to it).
+kernel launches (only the CUDA branch adds to it).  The backward is the
+plain reverse scan :func:`.ref.rglru_bwd` on either device.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Optional
 import torch
 
 from .. import build
-from .ref import rglru_ref
+from .ref import rglru_bwd, rglru_ref
 
 launches = 0
 
@@ -43,6 +44,19 @@ def _rglru_scan(x: torch.Tensor, log_a: torch.Tensor,
 @_rglru_scan.register_fake
 def _(x, log_a, h0):
     return torch.empty_like(x)
+
+
+def _setup(ctx, inputs, output):
+    _, log_a, h0 = inputs
+    ctx.save_for_backward(log_a, output, h0)
+
+
+def _backward(ctx, dy):
+    log_a, h, h0 = ctx.saved_tensors
+    return rglru_bwd(dy, log_a, h, h0)
+
+
+_rglru_scan.register_autograd(_backward, setup_context=_setup)
 
 
 def rglru_scan(x: torch.Tensor, log_a: torch.Tensor,

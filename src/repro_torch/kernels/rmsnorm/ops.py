@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from .. import build
-from .ref import rmsnorm_ref
+from .ref import rmsnorm_bwd, rmsnorm_ref
 
 launches = 0
 
@@ -123,6 +123,19 @@ def _rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 @_rmsnorm.register_fake
 def _(x, w, eps):
     return torch.empty_like(x)
+
+
+def _setup(ctx, inputs, output):
+    x, w, ctx.eps = inputs
+    ctx.save_for_backward(x, w)
+
+
+def _backward(ctx, dy):
+    x, w = ctx.saved_tensors
+    return (*rmsnorm_bwd(dy, x, w, ctx.eps), None)
+
+
+_rmsnorm.register_autograd(_backward, setup_context=_setup)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor,

@@ -12,3 +12,14 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor,
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps)).to(dt) * w.to(dt)
+
+
+def rmsnorm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(dx, dw)`` of :func:`rmsnorm_ref` at ``(x, w)`` for the output
+    cotangent ``dy``: autograd through the plain version, recomputed."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_()
+        w = w.detach().requires_grad_()
+        dx, dw = torch.autograd.grad(rmsnorm_ref(x, w, eps), (x, w), dy)
+    return dx, dw

@@ -56,3 +56,13 @@ def test_paper_entry_point_loads_without_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    cwd=ROOT, timeout=120)
+
+
+def test_scale_and_sparse_load_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.scale, repro_torch.core.sparse; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   cwd=ROOT, timeout=120)
