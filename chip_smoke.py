@@ -46,8 +46,10 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               updated parameters are held against the same step run by the
               port on the CPU; the all-reduces of one live step are counted
               by the interceptor.  Median step ms after the warm-up step,
-              samples/s and peak memory are printed.  The group is
-              destroyed at the end of the phase;
+              samples/s and peak memory are printed.  One more step of
+              each is profiled under torch.profiler (CPU and CUDA, shapes
+              recorded) and its Chrome trace written under ``build/`` for
+              phase 7.  The group is destroyed at the end of the phase;
 5. monitor -- for each architecture, the two-phase prefill/decode capture at
               full width on a fake 4x2 mesh, under FakeTensorMode on
               ``cuda``; its per-phase collective calls must equal a pinned
@@ -69,10 +71,23 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               ``matrix_for_ops(..., sparse=False)`` entry for entry and
               its link projection the dense matrix's, and on the capture
               and every point the batched ``total_time_split`` must equal
-              the per-op sum bitwise.
+              the per-op sum bitwise;
+7. trace   -- each paper application's profiled step (phase 4) imported
+              with ``repro_torch.core.trace.load_trace``, which must sniff
+              the torch frontend: its all-reduces must be the live step's
+              count, their payload bytes in order those of the
+              application's phase-5 capture, and ``compare`` against that
+              capture must match every measured op with a finite relative
+              error; the compare table and the measured ms per kind are
+              printed (one rank of NCCL runs no kernel: those ms are the
+              calls' host spans, a placeholder until a multi-rank run).  Then every phase-5 capture is linted: its
+              ``lint_table``, its findings as rule -> count held to a pinned
+              table, and the same findings after ``save(include_lint=True)``
+              and a reload.
 
-Then one JSON line with every kernel's numbers, the card's name and power
-limit as nvidia-smi prints them, and, last, the device line.  The script
+Then one JSON line with every kernel's numbers and each phase's seconds,
+the card's name and power limit as nvidia-smi prints them, and, last, the
+device line.  The script
 needs ``src/repro_torch`` beside it and a CUDA device, and imports nothing of
 JAX.
 """
@@ -826,7 +841,9 @@ def run_monitor(arch: str):
                          device="cuda")
     log(f"[monitor] {cfg.name} {cfg.n_layers}L on a fake 4x2 mesh: "
         f"{len(rep.compiled_ops)} collectives captured in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.3f} s, "
+        f"{sum(len(g.nodes) for g in rep._defuse_graphs)} ops recorded "
+        "for the lint")
     log(rep.phase_table())
     log(rep.heatmap(phase="decode"))
     calls = {(ph, kind): row["calls"]
@@ -875,9 +892,10 @@ PAPER_MONITOR = {
 }
 
 
-def run_paper_monitor(name: str, live_allreduces: int) -> None:
+def run_paper_monitor(name: str, live_allreduces: int):
     """Phase 5 for one paper application: its one-step capture, held to
-    :data:`PAPER_MONITOR` and to the all-reduces one live step issued."""
+    :data:`PAPER_MONITOR` and to the all-reduces one live step issued.
+    Returns the report."""
     from repro_torch.launch import paper as launch
 
     t0 = time.perf_counter()
@@ -885,7 +903,9 @@ def run_paper_monitor(name: str, live_allreduces: int) -> None:
                          device="cuda")
     log(f"[monitor] {name} one step on a fake 8-way data mesh: "
         f"{len(rep.compiled_ops)} collectives captured in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.3f} s, "
+        f"{sum(len(g.nodes) for g in rep._defuse_graphs)} ops recorded "
+        "for the lint")
     log(rep.usage_table())
     log(rep.heatmap())
     got = {kind: (row["calls"], row["payload_bytes"])
@@ -898,6 +918,7 @@ def run_paper_monitor(name: str, live_allreduces: int) -> None:
         fail(f"{name}: the capture records {got['all-reduce'][0]} "
              f"all-reduces, a live step issued {live_allreduces}")
     save_and_reload(rep, f"paper_{name}")
+    return rep
 
 
 # The ring of phase 5: kind -> (calls, payload bytes), traced and recorded.
@@ -1028,11 +1049,30 @@ def run_scale(arch: str, rep) -> list:
     return points
 
 
-def run_train() -> dict:
+def trace_step(name: str, step, params, batch) -> Path:
+    """One more live step under ``torch.profiler`` (CPU and CUDA, shapes
+    recorded), its Chrome trace written under ``build/`` for phase 7."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    path = ROOT / "build" / f"chip_smoke_{name}_step.pt.trace.json"
+    path.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step(params, batch)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    log(f"[train] {name} one step profiled with shapes: "
+        f"{path.relative_to(ROOT)} ({path.stat().st_size / 2**20:.1f} MiB)")
+    return path
+
+
+def run_train() -> tuple[dict, dict]:
     """Phase 4: every paper application trained on the card over a one-rank
     NCCL group, its first step held against the same step on the CPU (a
     one-rank gloo group).  Returns each application's live all-reduces per
-    step."""
+    step and the Chrome trace of one more profiled step."""
     import torch
     import torch.distributed as dist
 
@@ -1043,7 +1083,7 @@ def run_train() -> dict:
 
     group = launch.open_group("cuda")
     cpu_group = dist.new_group([0], backend="gloo")
-    live = {}
+    live, traces = {}, {}
     for name in PAPER_APPS:
         app = launch.make_app(name)
         res = launch.train(app, group, steps=TRAIN_STEPS, device="cuda")
@@ -1090,6 +1130,7 @@ def run_train() -> dict:
         params = launch.init_app_params(app, 0, "cuda")
         batch = app.data.batch_at(0, "cuda")
         profile_window(f"{name} train step", lambda: step(params, batch))
+        traces[name] = trace_step(name, step, params, batch)
         with FlopCounterMode(display=False) as flops:
             step(params, batch)
         b_ms = flops.get_total_flops() / FP32_FLOPS * 1e3
@@ -1101,7 +1142,91 @@ def run_train() -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     dist.destroy_process_group()
-    return live
+    return live, traces
+
+
+# Phase 7's lint findings of every phase-5 capture, rule -> count.  A
+# ``cuda`` mesh's shard-to-shard redistribution is one all-to-all, which no
+# rule flags; GNMT's startup Broadcast is an all-gather of 8 copies of
+# which the program keeps rank 0's (``sweep.broadcast_params``), one
+# ``allgather-then-slice`` a gathered parameter (16 of its 17 all-gathers;
+# the 17th, the metrics gather, keeps every rank's loss)
+LINT_COUNTS = {
+    "qwen3_8b": {},
+    "recurrentgemma_2b": {},
+    "resnet": {},
+    "gnmt": {"allgather-then-slice": 16},
+    "paper": {},
+}
+
+
+def run_trace(traces: dict, live: dict, captures: dict) -> None:
+    """Phase 7: each paper application's profiled live step imported and
+    compared with its phase-5 capture, then every capture linted."""
+    from collections import Counter
+
+    from repro_torch.core import CommReport
+    from repro_torch.core.trace import load_trace, sniff_format
+
+    for name in PAPER_APPS:
+        path = traces[name]
+        t0 = time.perf_counter()
+        fmt = sniff_format(str(path))
+        if fmt != "torch":
+            fail(f"{name}: {path.name} sniffed as {fmt!r}, not 'torch'")
+        imp = load_trace(str(path), name=f"{name} live step")
+        measured = imp.report()
+        load_s = time.perf_counter() - t0
+        capture = captures[name]
+        got = [op.payload_bytes for op in measured.compiled_ops
+               if op.kind == "all-reduce"]
+        want = [op.payload_bytes for op in capture.compiled_ops
+                if op.kind == "all-reduce"]
+        log(f"[trace] {name}: {path.name} imported in {load_s:.2f} s: "
+            f"{len(measured.compiled_ops)} collectives, timing sources "
+            f"{imp.meta['timing']}; {len(got)} all-reduces "
+            f"({sum(got):.0f} B), live step {live[name]}")
+        if len(got) != live[name]:
+            fail(f"{name}: the trace holds {len(got)} all-reduces, a live "
+                 f"step issued {live[name]}")
+        if got != want:
+            fail(f"{name}: measured all-reduce payloads {got} != the "
+                 f"capture's {want}")
+        res = measured.compare(capture)
+        log(res.table(title=f"{name}: measured live step (1 rank, NCCL) "
+                            f"against its capture on a fake 8-way mesh"))
+        kinds = res.by_kind()
+        # a host span times the call, not NCCL's work on the card
+        what = ("host spans" if set(imp.meta["timing"]) == {"cpu_annotation"}
+                else "device")
+        log(f"[trace] {name} ms by kind, measured ({what}) "
+            f"{ {k: b['measured_s'] * 1e3 for k, b in kinds.items()} }, "
+            f"modeled { {k: b['modeled_s'] * 1e3 for k, b in kinds.items()} }")
+        if res.unmatched_measured:
+            fail(f"{name}: {res.unmatched_measured} measured ops matched no "
+                 "captured op")
+        if not all(r.rel_err is not None and math.isfinite(r.rel_err)
+                   for r in res.rows):
+            fail(f"{name}: a matched row has no finite relative error")
+    for name, rep in captures.items():
+        t0 = time.perf_counter()
+        findings = rep.lint()
+        lint_s = time.perf_counter() - t0
+        log(rep.lint_table())
+        counts = dict(Counter(f.rule_id for f in findings))
+        log(f"[lint] {name}: {len(findings)} findings {counts} in "
+            f"{lint_s:.3f} s over {len(rep.compiled_ops)} ops")
+        if counts != LINT_COUNTS[name]:
+            fail(f"{name}: lint findings {counts} != expected "
+                 f"{LINT_COUNTS[name]}")
+        path = ROOT / "build" / f"chip_smoke_{name}_lint_report.json"
+        rep.save(str(path), include_lint=True)
+        back = CommReport.load(str(path))
+        if [f.to_dict() for f in back.lint()] != \
+                [f.to_dict() for f in findings]:
+            fail(f"{name}: findings reloaded from {path.name} differ")
+        log(f"[lint] {name}: saved with include_lint and reloaded: findings "
+            "equal")
 
 
 KERNEL_META = {
@@ -1136,8 +1261,12 @@ def main() -> None:
     log(f"[build] {len(build.SOURCES)} CUDA sources built in "
         f"{time.perf_counter() - t0:.1f} s")
 
+    seconds = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     kernels = check_kernels()
     grad_errs = check_kernel_grads()
+    seconds["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     by_arch = {}
     for arch in ARCHS:
         by_arch[arch], res = run_serve(arch)
@@ -1145,13 +1274,23 @@ def main() -> None:
         del res        # free this model before the next one is built
         gc.collect()
         torch.cuda.empty_cache()
-    live = run_train()
+    seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    live, traces = run_train()
+    seconds["train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     reports = {arch: run_monitor(arch) for arch in ARCHS}
     for name in PAPER_APPS:
-        run_paper_monitor(name, live[name])
+        reports[name] = run_paper_monitor(name, live[name])
     run_ring_monitor()
+    seconds["monitor"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     for arch in ARCHS:
         run_scale(arch, reports[arch])
+    seconds["scale"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_trace(traces, live, reports)
+    seconds["trace"] = time.perf_counter() - t0
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
@@ -1162,7 +1301,8 @@ def main() -> None:
                                           "bound_ms", "bound_by",
                                           "library_ms")},
          "grad_max_abs_err": grad_errs[name]}
-        for name in KERNEL_META]}
+        for name in KERNEL_META],
+        "phase_seconds": {k: round(v, 3) for k, v in seconds.items()}}
     log(json.dumps(line))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

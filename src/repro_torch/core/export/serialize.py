@@ -10,10 +10,15 @@ with a topology carry the derived v2/v3 physical-link sections
 (``link_matrix``, ``links``, ``link_summary``, ``link_tiers``) and the
 ``overlap`` section; a sparse report omits the O(d^2) ``link_matrix`` and
 keeps only the ``links`` rows that carried bytes, as the reference does.
-The optional ``hlo_gz``, ``schedules`` and ``lint`` sections are not
-written (the port has no compiled module, and its lint waits for a later
-slice).  Derived and optional sections are not restored on load, so the
-reference loads the port's files and the port loads the reference's.
+Reports with trace-imported ops carry the v9 ``trace_meta`` section.
+``include_lint=True`` writes the optional schema-v7 ``lint`` section (the
+default binding's findings), and a file that has one gets its findings back
+on load as ``_lint_findings``, which ``CommReport.lint()`` serves; the
+per-op ``operand_names``/``use_global_device_ids`` keys are written, and
+default when absent.  The optional ``hlo_gz`` and ``schedules`` sections are
+not written (the port has no compiled module) and, like the derived
+sections, are not restored, so the reference loads the port's files and
+the port loads the reference's.
 """
 from __future__ import annotations
 
@@ -235,11 +240,14 @@ def _link_section(report) -> dict:
     return out
 
 
-def report_to_dict(report) -> dict:
-    """``CommReport`` -> JSON-serializable dict (schema ``v9``)."""
+def report_to_dict(report, *, include_lint: bool = False) -> dict:
+    """``CommReport`` -> JSON-serializable dict (schema ``v9``), with the
+    default binding's lint findings when ``include_lint``."""
     out = {"schema": SCHEMA, **_link_section(report)}
     if report.trace_meta:
         out["trace_meta"] = dict(report.trace_meta)
+    if include_lint:
+        out["lint"] = [f.to_dict() for f in report.lint()]
     out.update({
         "phases": [phase_to_dict(p) for p in report.phases],
         "name": report.name,
@@ -267,8 +275,8 @@ def report_from_dict(d: dict):
     """Dict (schema ``v1`` ... ``v9``) -> ``CommReport``.
 
     Derived sections (links, overlap, schedules) are not restored: the
-    report's views recompute them from ``ops`` + ``topo``.  ``hlo_gz`` and
-    ``lint`` are ignored.
+    report's views recompute them from ``ops`` + ``topo``.  ``hlo_gz`` is
+    ignored; a ``lint`` section comes back as ``_lint_findings``.
     """
     from ..monitor import CommReport  # deferred: monitor imports this module
 
@@ -276,7 +284,7 @@ def report_from_dict(d: dict):
     if schema is not None and schema not in ACCEPTED_SCHEMAS:
         raise ValueError(
             f"unknown report schema {schema!r}; accepted: {ACCEPTED_SCHEMAS}")
-    return CommReport(
+    report = CommReport(
         name=d["name"],
         num_devices=int(d["num_devices"]),
         traced=[event_from_dict(e) for e in d.get("traced", [])],
@@ -299,3 +307,8 @@ def report_from_dict(d: dict):
         trace_meta=(dict(d["trace_meta"])
                     if d.get("trace_meta") else None),
     )
+    if "lint" in d:
+        from ..lint import LintFinding   # deferred: keep leaf import light
+        report._lint_findings = [LintFinding.from_dict(x)
+                                 for x in d["lint"]]
+    return report

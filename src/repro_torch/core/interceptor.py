@@ -34,8 +34,14 @@ the op stream.
 When a DTensor is involved the mode steps aside (``NotImplemented``) so
 DTensor first lowers the op to local ops and collectives, which then reach
 the mode -- so resharding the program never asked for is recorded too, the
-way the reference reads GSPMD's resharding from the compiled HLO.
-``wait_tensor`` is not a collective and is not recorded.
+way the reference reads GSPMD's resharding from the compiled HLO.  An
+``AsyncCollectiveTensor`` (a functional collective's pending result) lowers
+the same way: its ``wait_tensor`` reaches the mode before the op that reads
+it.  ``wait_tensor`` is not a collective and is not recorded.
+
+With ``defuse=True`` the interceptor also keeps a def-use record of every
+op it sees (:mod:`repro_torch.core.defuse`), which the lint's def-use rules
+walk.
 """
 from __future__ import annotations
 
@@ -47,6 +53,7 @@ from collections import Counter
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from .defuse import DefUseRecorder
 from .events import CollectiveOp, Shape, TraceEvent, torch_shape
 
 # op name (overload packet) -> (HLO kind, NCCL-style name)
@@ -140,11 +147,13 @@ class CollectiveInterceptor(TorchDispatchMode):
     caches sharding decisions across meshes of equal layout, so a second
     mesh built like an earlier one may issue collectives on the earlier
     mesh's groups.  A group outside the mesh dims is recorded with its own
-    ranks.
+    ranks.  ``defuse=True`` keeps :attr:`defuse`, a
+    :class:`~repro_torch.core.defuse.DefUseRecorder` of every op.
     """
 
-    def __init__(self, mesh=None):
+    def __init__(self, mesh=None, defuse: bool = False):
         super().__init__()
+        self.defuse = DefUseRecorder() if defuse else None
         self.events: list[TraceEvent] = []
         self.ops: list[CollectiveOp] = []
         self._groups: dict[str, tuple[str, list[list[int]]]] = {}
@@ -183,20 +192,28 @@ class CollectiveInterceptor(TorchDispatchMode):
         return self._groups[group_name]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed._functional_collectives import \
+            AsyncCollectiveTensor
         from torch.distributed.tensor import DTensor
 
         kwargs = kwargs or {}
         if isinstance(func, torch._ops.HigherOrderOperator):
             return func(*args, **kwargs)
-        if any(issubclass(t, DTensor) for t in types):
-            return NotImplemented      # let DTensor lower to local ops
+        if any(issubclass(t, (DTensor, AsyncCollectiveTensor))
+               for t in types):
+            return NotImplemented      # let the subclass lower to local ops
         out = func(*args, **kwargs)
         ns = func.namespace
         name = func._overloadpacket.__name__
         kind = {"_c10d_functional": _FUNCTIONAL, "c10d": _C10D,
                 "_dtensor": _DTENSOR}.get(ns, {}).get(name)
+        n_ops = len(self.ops)
         if kind is not None:
             self._record(func, kind, args, kwargs, out)
+        if self.defuse is not None:
+            self.defuse.record(func, args, kwargs, out,
+                               self.ops[-1].name if len(self.ops) > n_ops
+                               else "")
         return out
 
     def _record(self, func, kind, args, kwargs, out) -> None:

@@ -81,7 +81,8 @@ class CommReport:
                 known_phases=self.phase_names(), label=self.name,
                 # a sparse snapshot keeps every binding sparse; dense ones
                 # leave the per-binding cutover in charge
-                sparse=True if is_sparse(self.matrix) else None)
+                sparse=True if is_sparse(self.matrix) else None,
+                graphs=getattr(self, "_defuse_graphs", ()))
             if phase is None and alg == self.algorithm:
                 v._memo.update(matrix=self.matrix,
                                per_primitive=self.per_primitive,
@@ -174,6 +175,43 @@ class CommReport:
                    f"(serialized {(ici_s + dcn_s) * 1e3:.3f} ms)")
         return lu.table() + "\n" + overlap
 
+    # -- measured (trace-imported) time -------------------------------------
+    def measured_seconds(self, phase: Optional[str] = None) -> Optional[float]:
+        """Total *measured* wall seconds over ops that carry a trace
+        measurement (``op.measured_s``, schema v9) -- ``None`` when no op
+        does, i.e. for purely modeled reports."""
+        return self.view(phase=phase).measured_seconds()
+
+    def compare(self, model=None, algorithm: Optional[str] = None):
+        """Modeled-vs-measured comparison
+        (:class:`~repro_torch.core.trace.compare.CompareResult`) of this
+        report's measured ops against ``model`` (a CommReport; default:
+        this report's own modeled times)."""
+        from .trace.compare import compare as compare_fn
+
+        return compare_fn(self, model, algorithm=algorithm)
+
+    # -- static lint ---------------------------------------------------------
+    def lint(self, algorithm: Optional[str] = None,
+             phase: Optional[str] = None) -> list:
+        """Static anti-pattern findings
+        (:class:`~repro_torch.core.lint.LintFinding`) for the ``(algorithm,
+        phase)`` binding -- lazy and memoized via :meth:`view`.  A report
+        loaded from a file saved with ``include_lint=True`` serves its
+        persisted default-binding findings without re-analysis (and without
+        the def-use graphs, which are not saved)."""
+        alg = algorithm or self.algorithm
+        if phase is None and alg == self.algorithm:
+            cached = getattr(self, "_lint_findings", None)
+            if cached is not None:
+                return cached
+        return self.view(alg, phase=phase).lint()
+
+    def lint_table(self, algorithm: Optional[str] = None) -> str:
+        """Terminal rendering of :meth:`lint` (reporter.lint_table)."""
+        return reporter.lint_table(
+            self.lint(algorithm), title=f"{self.name}: lint findings")
+
     def render(self) -> str:
         parts = [
             f"### CommReport: {self.name} ({self.num_devices} devices) ###",
@@ -191,10 +229,13 @@ class CommReport:
             f"{reporter.human_bytes(self.total_wire_bytes())}")
         return "\n\n".join(parts)
 
-    def save(self, path: str) -> str:
-        """Write the report as schema-v9 JSON (see :meth:`load`)."""
+    def save(self, path: str, *, include_lint: bool = False) -> str:
+        """Write the report as schema-v9 JSON (see :meth:`load`).
+        ``include_lint=True`` adds the schema-v7 ``lint`` section: the
+        default binding's :meth:`lint` findings, served back by loaded
+        reports without re-analysis."""
         from .export import export_json
-        return export_json(self, path)
+        return export_json(self, path, include_lint=include_lint)
 
     @classmethod
     def load(cls, path: str) -> "CommReport":

@@ -5,7 +5,8 @@ terminal half of ``repro.core.reporter``).
   per session phase,
 * the ``(d+1) x (d+1)`` communication matrix rendered as an ASCII heatmap in
   log scale (paper Figs. 2 & 3),
-* the traced-vs-issued diff table.
+* the traced-vs-issued diff table,
+* the lint findings table.
 """
 from __future__ import annotations
 
@@ -36,6 +37,32 @@ def format_table(rows: list[list[str]], header: list[str]) -> str:
         return " | ".join(str(c).ljust(w) for c, w in zip(row, widths))
     sep = "-+-".join("-" * w for w in widths)
     return "\n".join([fmt(header), sep] + [fmt(r) for r in rows])
+
+
+def lint_table(findings, title: str = "") -> str:
+    """Findings table (:class:`~repro_torch.core.lint.LintFinding`
+    records): rule, severity, ops, modeled savings -- already sorted
+    errors-first by the lint pass."""
+    if not findings:
+        out = "(no lint findings)"
+        return f"== {title} ==\n{out}" if title else out
+    rows = []
+    for f in findings:
+        ops = ",".join(f.op_names)
+        if len(ops) > 40:
+            ops = ops[:37] + f"...({len(f.op_names)} ops)"
+        rows.append([
+            f.rule_id, f.severity, f.phase or "-", ops,
+            f"{f.est_savings_s * 1e3:.3f} ms",
+            human_bytes(f.est_dcn_bytes_saved),
+            f.suggested_fix,
+        ])
+    out = format_table(rows, ["Rule", "Severity", "Phase", "Ops",
+                              "Est. Savings", "DCN Bytes Saved",
+                              "Suggested Fix"])
+    if title:
+        out = f"== {title} ==\n{out}"
+    return out
 
 
 # ---------------------------------------------------------------------------

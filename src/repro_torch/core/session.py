@@ -21,7 +21,10 @@ no NCCL call runs -- the analogue of the reference lowering against
 ``ShapeDtypeStruct``s.  Every recorded op is tagged with the active phase.
 The reference also compiles and parses the HLO; the port has no compiled
 half yet, so its logical and physical op lists are the same stream and the
-traced-vs-compiled diff waits.
+traced-vs-compiled diff waits.  Every capture keeps its def-use record
+(:mod:`repro_torch.core.defuse`), the port's stand-in for the compiled
+module that the lint's def-use rules walk, as the reference always keeps
+the HLO; under ``FakeTensorMode`` the tensors it holds allocate nothing.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import time
 from typing import Iterable, Optional
 
 from . import cost_models, decompose
+from .defuse import DefUseGraph
 from .events import CollectiveOp, HostTransfer, PhaseRecord, TraceEvent
 from .interceptor import CollectiveInterceptor, traced_summary
 from .topology import MeshTopology
@@ -69,6 +73,7 @@ class Capture:
     ops: list[CollectiveOp]
     traced: list[TraceEvent]
     trace_seconds: float
+    graph: DefUseGraph
 
 
 class MonitorSession:
@@ -76,7 +81,8 @@ class MonitorSession:
 
     ``mesh`` (a ``DeviceMesh``, e.g. from :func:`fake_mesh`) fixes the
     device topology for every capture; ``algorithm`` is the default binding
-    of the views and the snapshot report.
+    of the views and the snapshot report.  Each capture records its
+    def-use graph for the lint.
     """
 
     def __init__(self, mesh=None, name: str = "session",
@@ -139,19 +145,23 @@ class MonitorSession:
         phase_name = phase or self.current_phase
         rec = self._phase_record(phase_name)
         t0 = time.perf_counter()
-        with self.fake_mode, CollectiveInterceptor(self.mesh) as icpt:
-            fn(*args, **kwargs)
+        with self.fake_mode, CollectiveInterceptor(
+                self.mesh, defuse=True) as icpt:
+            icpt.defuse.note_inputs((args, kwargs))
+            returned = fn(*args, **kwargs)
         seconds = time.perf_counter() - t0
         ops = icpt.ops
         if op_transform is not None:
             ops = [op_transform(op) or op for op in ops]
+        graph = icpt.defuse.graph(returned)
+        graph.bind_ops(ops)
         for op in ops:
             op.phase = phase_name
         for ev in icpt.events:
             ev.phase = phase_name
         cap = Capture(name=name or getattr(fn, "__name__", "fn"),
                       phase=phase_name, ops=ops, traced=list(icpt.events),
-                      trace_seconds=seconds)
+                      trace_seconds=seconds, graph=graph)
         self.captures.append(cap)
         rec.num_captures += 1
         rec.trace_seconds += seconds
@@ -192,6 +202,11 @@ class MonitorSession:
     def phase_names(self) -> list[str]:
         return list(self._phases)
 
+    @property
+    def graphs(self) -> list[DefUseGraph]:
+        """The captures' def-use graphs, one a capture."""
+        return [c.graph for c in self.captures]
+
     # -- views and snapshots -----------------------------------------------
     def view(self, algorithm: Optional[str] = None,
              phase: Optional[str] = None) -> CommView:
@@ -204,7 +219,8 @@ class MonitorSession:
             self._views[key] = build_view(
                 self.compiled_ops, self.num_devices, alg, self.topo,
                 self.host_transfers, phase=phase,
-                known_phases=self.phase_names(), label=self.name)
+                known_phases=self.phase_names(), label=self.name,
+                graphs=self.graphs)
         return self._views[key]
 
     def report(self, name: Optional[str] = None):
@@ -213,7 +229,7 @@ class MonitorSession:
         from .monitor import CommReport   # deferred: monitor imports us
 
         v = self.view()
-        return CommReport(
+        rep = CommReport(
             name=name or self.name,
             num_devices=self.num_devices,
             traced=list(self.traced),
@@ -231,3 +247,5 @@ class MonitorSession:
             algorithm=self.algorithm,
             phases=[dataclasses.replace(p) for p in self._phases.values()],
         )
+        rep._defuse_graphs = self.graphs
+        return rep

@@ -5,7 +5,8 @@ A :class:`CommView` owns ONE ``(algorithm, topology)`` binding of a set of
 ops and every artifact derived from it -- the ``(d+1)^2`` matrix (dense, or
 COO above :data:`~repro_torch.core.sparse.SPARSE_DEVICE_THRESHOLD`
 devices), per-primitive matrices, the Table-2/3 summary, link utilization,
-per-tier collective seconds and their overlap bound.  Each artifact is
+per-tier collective seconds and their overlap bound, measured seconds and
+the lint's findings.  Each artifact is
 computed on first access and memoized: bind once, read many.
 ``view.rebind("tree")`` shares the op list and recomputes nothing until an
 artifact is read.  Every timing reads one columnar
@@ -26,7 +27,7 @@ from .topology import MeshTopology
 def build_view(ops, num_devices: int, algorithm: str,
                topo: Optional[MeshTopology], host_transfers,
                *, phase: Optional[str], known_phases, label: str,
-               sparse: Optional[bool] = None):
+               sparse: Optional[bool] = None, graphs=()):
     """Construct the :class:`CommView` for one ``(algorithm, phase)``
     binding -- the shared filter/validation behind both
     ``MonitorSession.view`` and ``CommReport.view`` (one implementation,
@@ -35,7 +36,8 @@ def build_view(ops, num_devices: int, algorithm: str,
     ``phase=None`` binds everything; a named phase filters ops and host
     transfers by their tag and must be one of ``known_phases``.
     ``sparse`` is the matrix-representation mode (None = auto by device
-    count, see :class:`CommView`).
+    count, see :class:`CommView`).  ``graphs`` are the captures' def-use
+    graphs (:mod:`~repro_torch.core.defuse`), read by the lint.
     """
     if phase is not None:
         known = list(known_phases)
@@ -46,7 +48,8 @@ def build_view(ops, num_devices: int, algorithm: str,
         host_transfers = [t for t in host_transfers if t.phase == phase]
     return CommView(ops, num_devices, algorithm=algorithm, topo=topo,
                     host_transfers=host_transfers,
-                    label=f"{label}:{phase or 'all'}", sparse=sparse)
+                    label=f"{label}:{phase or 'all'}", sparse=sparse,
+                    graphs=graphs)
 
 
 class CommView:
@@ -62,7 +65,8 @@ class CommView:
                  algorithm: str = "ring",
                  topo: Optional[MeshTopology] = None,
                  host_transfers: Iterable[HostTransfer] = (),
-                 label: str = "", sparse: Optional[bool] = None):
+                 label: str = "", sparse: Optional[bool] = None,
+                 graphs: Iterable = ()):
         cost_models.validate_algorithm(algorithm)
         self.ops = list(ops)
         self.num_devices = int(num_devices)
@@ -74,6 +78,7 @@ class CommView:
         # dense ndarray, None = auto (sparse above the device-count
         # cutover -- the dense array is O(d^2) memory)
         self.sparse = sparse
+        self.graphs = list(graphs)
         self._memo: dict = {}
 
     @property
@@ -99,7 +104,8 @@ class CommView:
             return self
         return CommView(self.ops, self.num_devices, algorithm=algorithm,
                         topo=self.topo, host_transfers=self.host_transfers,
-                        label=self.label, sparse=self.sparse)
+                        label=self.label, sparse=self.sparse,
+                        graphs=self.graphs)
 
     # -- byte accounting ---------------------------------------------------
     @property
@@ -188,7 +194,8 @@ class CommView:
         """Modeled seconds per op (aligned with ``self.ops``): each entry
         is the op's serialized schedule time -- ``sum(time_split)`` --
         times its execution weight.  ``None`` entries without a topology
-        (no time model)."""
+        (no time model); the compare layer matches these against the
+        measured ``op.measured_s`` values a trace import carries."""
         def build():
             if self.topo is None:
                 return [None] * len(self.ops)
@@ -196,6 +203,13 @@ class CommView:
             ici, dcn = batch.time_split_per_op(self.topo)
             return ((ici + dcn) * batch.weight).tolist()
         return self._cached("op_seconds", build)
+
+    def measured_seconds(self):
+        """Total measured wall seconds over ops carrying ``measured_s``
+        (trace imports, schema v9); ``None`` when no op is measured."""
+        vals = [op.measured_s for op in self.ops
+                if op.measured_s is not None]
+        return float(sum(vals)) if vals else None
 
     # -- physical-link view ------------------------------------------------
     def link_utilization(self):
@@ -214,3 +228,17 @@ class CommView:
         """Contention-aware bound: the bottleneck link's bytes/bandwidth."""
         lu = self.link_utilization()
         return 0.0 if lu is None else lu.bottleneck_seconds()
+
+    # -- static lint ---------------------------------------------------------
+    def lint(self) -> list:
+        """Static anti-pattern findings for this binding (lazy, memoized
+        like every other artifact): a list of
+        :class:`~repro_torch.core.lint.LintFinding`, errors first, then by
+        modeled savings.  The def-use rules run only when the view carries
+        :attr:`graphs`; the op-stream rules always run (savings are zero
+        without a topology)."""
+        from .lint import lint_ops   # deferred: lint imports decompose
+
+        return self._cached("lint", lambda: lint_ops(
+            self.ops, topo=self.topo, algorithm=self.algorithm,
+            graphs=self.graphs))

@@ -214,8 +214,7 @@ def available_configs() -> dict[str, SweepSpec]:
 def _monitor_cell(build: Callable, mesh, name: str,
                   algorithm: str = "ring"):
     """Monitor one cell: ``build(mesh)`` under the session's fake mode,
-    then one capture of its ``fn(*args, **kwargs)``.  Returns the
-    :class:`~repro_torch.core.CommReport`."""
+    then one capture of its ``fn(*args, **kwargs)``.  Returns the :class:`~repro_torch.core.CommReport`."""
     sess = MonitorSession(mesh=mesh, name=name, algorithm=algorithm)
     with sess.fake_mode:
         built = build(mesh)

@@ -66,3 +66,14 @@ def test_scale_and_sparse_load_without_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    cwd=ROOT, timeout=120)
+
+
+def test_lint_and_trace_load_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.core.lint, repro_torch.core.defuse, "
+            "repro_torch.core.trace, repro_torch.core.export.perfetto; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   cwd=ROOT, timeout=120)
