@@ -35,7 +35,8 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               kernel).  The first decode step's logits are held against the
               same step with the plain versions, and torch.profiler shows
               where one prefill's and four decode steps' device time goes,
-              with the device's idle share.  Each model is freed before the
+              with the device's idle share.  Qwen3-8B's prefill is counted
+              (FLOPs, bytes) for phase 8.  Each model is freed before the
               next is built;
 4. train   -- for each of the paper's applications (ResNet-18, GNMT, the
               DDP microbenchmark's MLP) at the repo's paper configs' sizes,
@@ -83,7 +84,30 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               calls' host spans, a placeholder until a multi-rank run).  Then every phase-5 capture is linted: its
               ``lint_table``, its findings as rule -> count held to a pinned
               table, and the same findings after ``save(include_lint=True)``
-              and a reload.
+              and a reload;
+8. cli     -- the port's command line, ``python -m repro_torch``, in
+              subprocesses on the card (captures on fake ``cuda`` meshes,
+              a report cache under ``build/cli``): ``configs`` must list
+              the four sweep configs; ``sweep`` of every config on 4x2 and
+              2x2x2 with ring and hierarchical, by phase and linted, run
+              twice: the cold run captures each (config, mesh) cell once,
+              the warm run captures nothing and hits the cache for every
+              cell, the summary CSV keeps the reference's header and each
+              cell's calls by kind equal a pinned table; ``monitor serve``
+              writes the JSON, CSV, HTML (one heatmap panel a phase) and
+              Perfetto exports, and the JSON reloads to the cache entry's
+              views; ``lint paper --mesh 2x2x2 --fail-on error`` exits 1
+              with ring and 0 with hierarchical; ``compare`` of phase 7's
+              live MLP trace against its saved capture matches every
+              measured op; ``sweep --scale-curve --configs serve`` (256 and
+              1024 devices) writes the reference's 13-column CSV and the
+              HTML curve.  Then the
+              roofline of phase 5's two full-width captures, and the H100
+              bound of the Qwen3-8B prefill that phase 3 counted with
+              ``repro_torch.core.op_cost`` (live on the card and again under
+              FakeTensorMode: the counts must be equal) -- FLOPs over
+              989 TFLOP/s bf16 or bytes over 3.35 TB/s, the larger -- which
+              must not exceed that prefill's measured device busy time.
 
 Then one JSON line with every kernel's numbers and each phase's seconds,
 the card's name and power limit as nvidia-smi prints them, and, last, the
@@ -745,10 +769,12 @@ def run_serve(arch: str) -> tuple[dict, dict]:
     return counts, res
 
 
-def profile_window(name: str, fn) -> None:
+def profile_window(name: str, fn):
     """``torch.profiler`` over one call of ``fn``: the ten device kernels
     with the most self time, then every kernel of the port's, and the
-    device's idle share of the wall time (both under the profiler)."""
+    device's idle share of the wall time (both under the profiler).
+    Returns the device's busy ms, or None when the trace has no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -767,7 +793,7 @@ def profile_window(name: str, fn) -> None:
     if not rows:
         log(f"[profile] {name}: no device time in the trace "
             "(device busy share not measured)")
-        return
+        return None
     log(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     rows.sort(key=lambda e: -e.self_device_time_total)
@@ -776,11 +802,13 @@ def profile_window(name: str, fn) -> None:
                           if any(k in e.key for k in KERNEL_META)]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d} calls  {e.key[:90]}")
+    return busy_ms
 
 
-def profile_serve(res, steps: int = 4) -> None:
+def profile_serve(res, steps: int = 4):
     """Where the serve step's time goes: :func:`profile_window` over one
-    prefill and over ``steps`` decode steps."""
+    prefill and over ``steps`` decode steps.  Returns the prefill's device
+    busy ms."""
     import torch
 
     from repro_torch.parallel import Sharder
@@ -803,8 +831,9 @@ def profile_serve(res, steps: int = 4) -> None:
                 tok = logits[:, -1].float().argmax(-1)[:, None]
 
         name = model.cfg.name
-        profile_window(f"{name} prefill", prefill)
+        busy_ms = profile_window(f"{name} prefill", prefill)
         profile_window(f"{name} decode x{steps}", decode)
+    return busy_ms
 
 
 # Each architecture's full-width capture: (phase, kind) -> calls on a fake
@@ -1229,6 +1258,234 @@ def run_trace(traces: dict, live: dict, captures: dict) -> None:
             "equal")
 
 
+def count_prefill(res) -> dict:
+    """Phase 3's served Qwen3-8B prefill counted by
+    ``repro_torch.core.op_cost`` twice: live on the card (the kernels run),
+    and the same call on fake copies of its parameters and prompts under
+    ``FakeTensorMode``.  Returns both counts."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._pytree import tree_map
+
+    from repro_torch.core.op_cost import OpCostMode
+    from repro_torch.parallel import Sharder
+
+    model, params, shd = res["model"], res["params"], Sharder()
+    batch = {"tokens": res["prompts"]}
+    max_len = PROMPT_LEN + NEW_TOKENS
+    with torch.inference_mode(), OpCostMode() as live:
+        model.prefill(params, batch, shd, max_len=max_len)
+    torch.cuda.synchronize()
+    with FakeTensorMode(allow_non_fake_inputs=True) as fm:
+        fake_params, fake_batch = tree_map(fm.from_tensor, (params, batch))
+        with torch.inference_mode(), OpCostMode() as fake:
+            model.prefill(fake_params, fake_batch, shd, max_len=max_len)
+    log(f"[cost] {model.cfg.name} prefill ({BATCH} x {PROMPT_LEN} tokens) "
+        f"counted live on the card {live.cost()}, under FakeTensorMode "
+        f"{fake.cost()}")
+    return {"live": live.cost(), "fake": fake.cost()}
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the command line on the card
+# ---------------------------------------------------------------------------
+CLI_DEVICE = "cuda"
+CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve")
+CLI_MESHES = ("4x2", "2x2x2")
+CLI_ALGORITHMS = ("ring", "hierarchical")
+# the reference's summary and scale CSV headers (repro.core.export.
+# csv_exporter), held as constants: this script imports nothing of it
+SUMMARY_HEADER = ("config,mesh,algorithm,num_devices,primitive,calls,"
+                  "payload_bytes,wire_bytes")
+SCALE_HEADER = ("config,algorithm,devices,pods,ops,wire_bytes,ici_ms,dcn_ms,"
+                "overlap_ms,bottleneck_link,bottleneck_ms,nnz,build_ms")
+# each sweep cell's calls by kind, ring binding, on fake ``cuda`` meshes:
+# (config, mesh) -> {kind: calls}.  The paper applications issue plain
+# collectives on their replica group (no DTensor), as on a CPU mesh
+# (tests/test_torch_sweep_run.py); the serve cell's DTensor reshards by
+# all-to-all on a ``cuda`` mesh where a CPU mesh all-gathers and chunks
+CLI_SWEEP_CALLS = {
+    ("paper", "4x2"): {"all-reduce": 4},
+    ("paper", "2x2x2"): {"all-reduce": 4},
+    ("gnmt", "4x2"): {"all-gather": 17, "all-reduce": 8},
+    ("gnmt", "2x2x2"): {"all-gather": 17, "all-reduce": 8},
+    ("resnet", "4x2"): {"all-reduce": 17},
+    ("resnet", "2x2x2"): {"all-reduce": 17},
+    ("serve", "4x2"): {"all-gather": 42, "all-reduce": 18,
+                       "all-to-all": 28, "reduce-scatter": 18},
+    ("serve", "2x2x2"): {"all-gather": 54, "all-reduce": 18,
+                         "all-to-all": 16, "reduce-scatter": 6},
+}
+# the scale curve's fleet sizes: the all-to-alls of a cuda capture hold
+# 1.0 M COO entries at 4096 devices and 4.2 M at 16384, which the
+# per-entry ``project_links`` routes in minutes (ROADMAP queue 1 item 7)
+CLI_SCALE_POINTS = "256,1024"
+
+
+def cli(*args: str, expect: int = 0) -> str:
+    """``python -m repro_torch *args`` in a subprocess from the checkout;
+    fails the run unless it exits with ``expect``.  Returns its stdout."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", *args],
+                          cwd=ROOT, env=env, capture_output=True, text=True)
+    log(f"[cli] python -m repro_torch {' '.join(args)}: exit "
+        f"{proc.returncode} in {time.perf_counter() - t0:.2f} s")
+    if proc.returncode != expect:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+        fail(f"`python -m repro_torch {' '.join(args)}` exited "
+             f"{proc.returncode}, expected {expect}")
+    return proc.stdout
+
+
+def _sweep_counts(out: str) -> tuple[int, int, int]:
+    """(cells, captured, cache hits) of a sweep's summary line."""
+    import re
+
+    m = re.search(r"== sweep summary: (\d+) cells \((\d+) captured, "
+                  r"(\d+) cache hits\) ==", out)
+    if m is None:
+        fail("no sweep summary line in the sweep's output")
+    return tuple(int(g) for g in m.groups())
+
+
+def run_cli(captures: dict, traces: dict, prefill: dict) -> None:
+    """Phase 8: the port's command line, ``python -m repro_torch``, on the
+    card: configs, a cold and a warm sweep, a config monitored into every
+    export format, lint exit codes, ``compare`` on phase 7's live trace,
+    a scale curve, then the roofline of phase 5's full-width captures and
+    the H100 bound of phase 3's counted prefill."""
+    import csv
+    import shutil
+
+    from repro_torch.core import export, roofline_of
+    from repro_torch.core.report_cache import ReportCache
+    from repro_torch.core.roofline import to_row
+
+    out = ROOT / "build" / "cli"
+    shutil.rmtree(out, ignore_errors=True)
+    cache = ["--cache-dir", str(out / "cache")]
+    dev = ["--device", CLI_DEVICE]
+
+    listed = [line.split("|")[0].strip()
+              for line in cli("configs").splitlines()[2:] if "|" in line]
+    log(f"[cli] configs: {listed}")
+    if sorted(listed) != sorted(CLI_CONFIGS):
+        fail(f"configs lists {listed}, expected {list(CLI_CONFIGS)}")
+
+    sweep = ["sweep", "--configs", ",".join(CLI_CONFIGS), "--meshes",
+             ",".join(CLI_MESHES), "--algorithms", ",".join(CLI_ALGORITHMS),
+             "--by-phase", "--lint", *dev, *cache]
+    n_cells = len(CLI_CONFIGS) * len(CLI_MESHES) * len(CLI_ALGORITHMS)
+    timed = {}
+    for run, want in (("cold", (n_cells, len(CLI_CONFIGS) * len(CLI_MESHES),
+                                0)),
+                      ("warm", (n_cells, 0, n_cells))):
+        t0 = time.perf_counter()
+        text = cli(*sweep, "--out", str(out / f"sweep_{run}"))
+        timed[run] = time.perf_counter() - t0
+        got = _sweep_counts(text)
+        log(f"[cli] {run} sweep: {got[0]} cells, {got[1]} captured, "
+            f"{got[2]} cache hits in {timed[run]:.2f} s")
+        if run == "cold":
+            log(text)
+        if got != want:
+            fail(f"{run} sweep (cells, captured, hits) {got} != {want}")
+    with open(out / "sweep_cold" / "sweep.csv") as f:
+        header = f.readline().strip()
+        f.seek(0)
+        rows = list(csv.DictReader(f))
+    if header != SUMMARY_HEADER:
+        fail(f"sweep.csv header {header!r} != the reference's")
+    calls: dict = {}
+    for r in rows:
+        if r["algorithm"] == "ring":
+            calls.setdefault((r["config"], r["mesh"]), {})[
+                r["primitive"]] = int(r["calls"])
+    log(f"[cli] cold sweep calls by cell (ring) {calls}")
+
+    mon = out / "monitor"
+    text = cli("monitor", "serve", "--formats", "json,csv,html,perfetto",
+               "--out", str(mon), *dev, *cache)
+    files = sorted(p.name for p in mon.iterdir())
+    log(f"[cli] monitor serve wrote {files}")
+    if files != ["serve.csv", "serve.html", "serve.json",
+                 "serve.trace.json"]:
+        fail(f"monitor serve wrote {files}")
+    page = (mon / "serve.html").read_text()
+    for phase in ("prefill", "decode"):
+        n = page.count(f"<h3>phase {phase}: all primitives</h3>")
+        if n != 1:
+            fail(f"serve.html has {n} heatmap panels of phase {phase}")
+    (back,) = export.load_json_reports(str(mon / "serve.json"))
+    (entry,) = [export.load_json_reports(e["path"])[0]
+                for e in ReportCache(str(out / "cache")).entries()
+                if e.get("meta", {}).get("config") == "serve"
+                and e["meta"].get("mesh") == "4x2"
+                and e["meta"].get("algorithm") == "ring"]
+    for phase in back.phase_names():
+        if back.view(phase=phase).summary != entry.view(phase=phase).summary \
+                or not (back.view(phase=phase).matrix
+                        == entry.view(phase=phase).matrix).all():
+            fail(f"serve.json's {phase} view differs from the cache entry's")
+    log(f"[cli] serve.json reloaded: phases {back.phase_names()}, views "
+        "equal to the cache entry's")
+
+    for alg, want in (("ring", 1), ("hierarchical", 0)):
+        cli("lint", "paper", "--mesh", "2x2x2", "--algorithms", alg,
+            "--fail-on", "error", *dev, *cache, expect=want)
+
+    saved = ROOT / "build" / "chip_smoke_paper_paper_report.json"
+    doc = json.loads(cli("compare", str(traces["paper"]), str(saved),
+                         "--json"))
+    stats = doc["stats"]
+    log(f"[cli] compare of the MLP step's live trace against its capture: "
+        f"{stats}")
+    if stats["unmatched_measured"] or not stats["count"]:
+        fail(f"compare left {stats['unmatched_measured']} measured ops "
+             f"unmatched ({stats['count']} matched)")
+
+    scale_dir = out / "scale"
+    t0 = time.perf_counter()
+    cli("sweep", "--scale-curve", "--configs", "serve", "--scale-points",
+        CLI_SCALE_POINTS, "--out", str(scale_dir), *dev, *cache)
+    timed["scale"] = time.perf_counter() - t0
+    scale_csv = (scale_dir / "scale_curve.csv").read_text().splitlines()
+    log("\n".join(scale_csv))
+    if scale_csv[0] != SCALE_HEADER:
+        fail(f"scale_curve.csv header {scale_csv[0]!r} != the reference's")
+    if "<svg" not in (scale_dir / "scale_curve.html").read_text():
+        fail("scale_curve.html holds no curve")
+
+    for arch in ARCHS:
+        row = to_row(roofline_of(captures[arch], mesh_name="4x2"))
+        log(f"[roofline] {arch} 4x2 capture (per device, V5E constants): "
+            f"{row}")
+        if not row["flops/dev"] > 0:
+            fail(f"{arch}: the capture counted no FLOPs")
+    live, fake = prefill["live"], prefill["fake"]
+    bound_ms = max(live["flops"] / BF16_FLOPS,
+                   live["bytes accessed"] / HBM_BYTES_PER_S) * 1e3
+    log(f"[roofline] qwen3_8b prefill on the card: {live['flops'] / 1e12:.4f} "
+        f"TFLOP, {live['bytes accessed'] / 1e9:.4f} GB counted live "
+        f"(FakeTensorMode: {fake['flops'] / 1e12:.4f} TFLOP, "
+        f"{fake['bytes accessed'] / 1e9:.4f} GB); H100 bound "
+        f"{bound_ms:.3f} ms (989 TFLOP/s bf16, 3.35 TB/s) against the "
+        f"measured busy {prefill['busy_ms']:.3f} ms")
+    if live != fake:
+        fail(f"prefill counted live {live} != under FakeTensorMode {fake}")
+    if prefill["busy_ms"] is None or bound_ms > prefill["busy_ms"]:
+        fail(f"prefill bound {bound_ms} ms exceeds the measured busy time "
+             f"{prefill['busy_ms']} ms")
+    log(f"[cli] seconds: cold sweep {timed['cold']:.2f}, warm sweep "
+        f"{timed['warm']:.2f}, scale curve {timed['scale']:.2f}")
+    if calls != CLI_SWEEP_CALLS:
+        fail(f"sweep calls by cell {calls} != expected {CLI_SWEEP_CALLS}")
+
+
 KERNEL_META = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -1270,7 +1527,9 @@ def main() -> None:
     by_arch = {}
     for arch in ARCHS:
         by_arch[arch], res = run_serve(arch)
-        profile_serve(res)
+        busy_ms = profile_serve(res)
+        if arch == "qwen3_8b":
+            prefill = dict(count_prefill(res), busy_ms=busy_ms)
         del res        # free this model before the next one is built
         gc.collect()
         torch.cuda.empty_cache()
@@ -1291,6 +1550,9 @@ def main() -> None:
     t0 = time.perf_counter()
     run_trace(traces, live, reports)
     seconds["trace"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(reports, traces, prefill)
+    seconds["cli"] = time.perf_counter() - t0
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],

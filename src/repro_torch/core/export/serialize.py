@@ -15,10 +15,13 @@ Reports with trace-imported ops carry the v9 ``trace_meta`` section.
 default binding's findings), and a file that has one gets its findings back
 on load as ``_lint_findings``, which ``CommReport.lint()`` serves; the
 per-op ``operand_names``/``use_global_device_ids`` keys are written, and
-default when absent.  The optional ``hlo_gz`` and ``schedules`` sections are
-not written (the port has no compiled module) and, like the derived
-sections, are not restored, so the reference loads the port's files and
-the port loads the reference's.
+default when absent.  ``include_schedules=True`` writes the optional
+schema-v5 per-op ``schedules`` section, derived data that is not restored
+on load.  The optional ``hlo_gz`` section is never written (the port has no
+compiled module) and is ignored on load.  The ``cost`` section holds a
+capture's counted per-device ``flops`` and ``bytes accessed``
+(:mod:`repro_torch.core.op_cost`).  So the reference loads the port's files
+and the port loads the reference's.
 """
 from __future__ import annotations
 
@@ -240,12 +243,16 @@ def _link_section(report) -> dict:
     return out
 
 
-def report_to_dict(report, *, include_lint: bool = False) -> dict:
+def report_to_dict(report, *, include_schedules: bool = False,
+                   include_lint: bool = False) -> dict:
     """``CommReport`` -> JSON-serializable dict (schema ``v9``), with the
-    default binding's lint findings when ``include_lint``."""
+    per-op schedule summaries when ``include_schedules`` and the default
+    binding's lint findings when ``include_lint``."""
     out = {"schema": SCHEMA, **_link_section(report)}
     if report.trace_meta:
         out["trace_meta"] = dict(report.trace_meta)
+    if include_schedules:
+        out["schedules"] = report.schedule_summaries()
     if include_lint:
         out["lint"] = [f.to_dict() for f in report.lint()]
     out.update({

@@ -41,7 +41,11 @@ it.  ``wait_tensor`` is not a collective and is not recorded.
 
 With ``defuse=True`` the interceptor also keeps a def-use record of every
 op it sees (:mod:`repro_torch.core.defuse`), which the lint's def-use rules
-walk.
+walk; with ``cost=True`` it counts every op's FLOPs and bytes
+(:mod:`repro_torch.core.op_cost`), one device's, since it sees the local
+ops DTensor lowers to.  The ops DTensor's sharding propagator runs on
+global-shape fake stand-ins to infer an output's shape are no part of the
+program: neither recorded nor counted.
 """
 from __future__ import annotations
 
@@ -55,6 +59,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from .defuse import DefUseRecorder
 from .events import CollectiveOp, Shape, TraceEvent, torch_shape
+from .op_cost import OpCounter, in_sharding_propagation
 
 # op name (overload packet) -> (HLO kind, NCCL-style name)
 _FUNCTIONAL = {
@@ -148,12 +153,15 @@ class CollectiveInterceptor(TorchDispatchMode):
     mesh built like an earlier one may issue collectives on the earlier
     mesh's groups.  A group outside the mesh dims is recorded with its own
     ranks.  ``defuse=True`` keeps :attr:`defuse`, a
-    :class:`~repro_torch.core.defuse.DefUseRecorder` of every op.
+    :class:`~repro_torch.core.defuse.DefUseRecorder` of every op;
+    ``cost=True`` keeps :attr:`cost`, an
+    :class:`~repro_torch.core.op_cost.OpCounter` of every op.
     """
 
-    def __init__(self, mesh=None, defuse: bool = False):
+    def __init__(self, mesh=None, defuse: bool = False, cost: bool = False):
         super().__init__()
         self.defuse = DefUseRecorder() if defuse else None
+        self.cost = OpCounter() if cost else None
         self.events: list[TraceEvent] = []
         self.ops: list[CollectiveOp] = []
         self._groups: dict[str, tuple[str, list[list[int]]]] = {}
@@ -203,6 +211,8 @@ class CollectiveInterceptor(TorchDispatchMode):
                for t in types):
             return NotImplemented      # let the subclass lower to local ops
         out = func(*args, **kwargs)
+        if in_sharding_propagation():
+            return out     # DTensor's shape inference, no part of the program
         ns = func.namespace
         name = func._overloadpacket.__name__
         kind = {"_c10d_functional": _FUNCTIONAL, "c10d": _C10D,
@@ -214,6 +224,8 @@ class CollectiveInterceptor(TorchDispatchMode):
             self.defuse.record(func, args, kwargs, out,
                                self.ops[-1].name if len(self.ops) > n_ops
                                else "")
+        if self.cost is not None:
+            self.cost.record(func, args, kwargs, out)
         return out
 
     def _record(self, func, kind, args, kwargs, out) -> None:

@@ -11,7 +11,8 @@ execution -> post-process into matrices + statistics.  The port's:
    :class:`~repro_torch.core.events.CollectiveOp` with per-device shapes;
 3. **post-process**: per-primitive statistics (Tables 2/3) and ``(d+1)^2``
    communication matrices (Figs. 2/3), through the same decomposition
-   engine as the reference.
+   engine as the reference, and the roofline terms (:func:`roofline_of`)
+   from the FLOPs and bytes counted during the capture.
 
 :class:`~repro_torch.core.session.MonitorSession` is the accumulating front
 door; ``monitor_fn`` below is the one-capture wrapper.  Reports round-trip
@@ -25,7 +26,7 @@ from typing import Optional
 
 import numpy as np
 
-from . import cost_models, reporter
+from . import cost_models, reporter, roofline
 from .events import CollectiveOp, HostTransfer, PhaseRecord, TraceEvent
 from .sparse import is_sparse
 from .topology import MeshTopology
@@ -101,6 +102,11 @@ class CommReport:
                 seen.append(op.phase)
         return seen
 
+    def phase_view(self, phase: str,
+                   algorithm: Optional[str] = None) -> CommView:
+        """Shorthand for :meth:`view` with a required phase."""
+        return self.view(algorithm, phase=phase)
+
     def phase_summaries(self, algorithm: Optional[str] = None) -> dict:
         """``{phase: Table-2 summary}`` in phase order."""
         return {p: self.view(algorithm, phase=p).summary
@@ -121,6 +127,14 @@ class CommReport:
         return reporter.phase_usage_table(
             self.phase_summaries(algorithm),
             title=f"{self.name}: per-phase collectives")
+
+    def phase_diff(self, a: str, b: str,
+                   algorithm: Optional[str] = None) -> str:
+        """Primitive-by-primitive comparison of two phases' communication
+        (calls + wire bytes, with the wire-byte delta)."""
+        return reporter.phase_diff_table(
+            a, self.view(algorithm, phase=a).summary,
+            b, self.view(algorithm, phase=b).summary)
 
     def heatmap(self, kind: Optional[str] = None,
                 phase: Optional[str] = None) -> str:
@@ -144,6 +158,12 @@ class CommReport:
             self, algorithm: Optional[str] = None) -> tuple[float, float]:
         """Per-tier serialized collective time ``(ici_s, dcn_s)``."""
         return self.view(algorithm).collective_seconds_split()
+
+    def collective_overlap_seconds(
+            self, algorithm: Optional[str] = None) -> float:
+        """Overlap-aware communication time: ``max`` of the per-tier
+        serialized sums (ICI and DCN are independent fabrics)."""
+        return self.view(algorithm).collective_overlap_seconds()
 
     # -- physical-link view ------------------------------------------------
     def link_utilization(self, algorithm: Optional[str] = None):
@@ -174,6 +194,33 @@ class CommReport:
                    f"{max(ici_s, dcn_s) * 1e3:.3f} ms "
                    f"(serialized {(ici_s + dcn_s) * 1e3:.3f} ms)")
         return lu.table() + "\n" + overlap
+
+    def rebound(self, algorithm: str) -> "CommReport":
+        """A sibling snapshot with its eager artifacts re-derived from
+        ``view(algorithm)``: what the sweep's cache stores, one report per
+        ``(config, mesh, algorithm)`` cell.  Nothing is recaptured; to
+        compare algorithms, :meth:`view` is the lazy way."""
+        if algorithm == self.algorithm:
+            return self
+        v = self.view(algorithm)
+        rep = dataclasses.replace(
+            self,
+            algorithm=algorithm,
+            compiled_summary=v.summary,
+            matrix=v.matrix,
+            per_primitive=v.per_primitive,
+            meta=dict(self.meta, algorithm=algorithm),
+        )
+        if hasattr(self, "_defuse_graphs"):
+            rep._defuse_graphs = self._defuse_graphs
+        return rep
+
+    def schedule_summaries(self,
+                           algorithm: Optional[str] = None) -> list[dict]:
+        """Per-op decomposition-schedule summaries (aligned with
+        ``compiled_ops``), also written by ``save(...,
+        include_schedules=True)``."""
+        return self.view(algorithm).schedule_summaries()
 
     # -- measured (trace-imported) time -------------------------------------
     def measured_seconds(self, phase: Optional[str] = None) -> Optional[float]:
@@ -229,13 +276,16 @@ class CommReport:
             f"{reporter.human_bytes(self.total_wire_bytes())}")
         return "\n\n".join(parts)
 
-    def save(self, path: str, *, include_lint: bool = False) -> str:
+    def save(self, path: str, *, include_schedules: bool = False,
+             include_lint: bool = False) -> str:
         """Write the report as schema-v9 JSON (see :meth:`load`).
-        ``include_lint=True`` adds the schema-v7 ``lint`` section: the
-        default binding's :meth:`lint` findings, served back by loaded
+        ``include_schedules=True`` adds the schema-v5 per-op schedule
+        summaries; ``include_lint=True`` the schema-v7 ``lint`` section:
+        the default binding's :meth:`lint` findings, served back by loaded
         reports without re-analysis."""
         from .export import export_json
-        return export_json(self, path, include_lint=include_lint)
+        return export_json(self, path, include_schedules=include_schedules,
+                           include_lint=include_lint)
 
     @classmethod
     def load(cls, path: str) -> "CommReport":
@@ -257,3 +307,39 @@ def monitor_fn(fn, *args, mesh=None, name: str = "fn",
         session.capture(fn, *args, name=name, host_transfers=host_transfers,
                         op_transform=op_transform, **kwargs)
     return session.report()
+
+
+def roofline_of(report: CommReport, *, arch: str = "", mesh_name: str = "",
+                model_flops: float = 0.0,
+                algorithm: str = "ring") -> roofline.RooflineReport:
+    """The roofline of a report: its counted per-device FLOPs and bytes
+    (``report.cost``, from the capture) and its recorded ops.
+
+    Only the port's own count is accepted, ``cost`` with exactly the keys
+    ``flops`` and ``bytes accessed``.  A report with no cost raises, and so
+    does the reference's ``cost``: XLA's ``cost_analysis`` (per-operand
+    ``bytes accessed0{}``, ``utilization...`` keys), which counts a loop
+    body once and which the reference's own roofline does not use either
+    (it walks the HLO).  It never returns zeros."""
+    if report.topo is None:
+        raise ValueError("report has no topology: monitor with mesh= for a "
+                         "roofline")
+    cost = report.cost or {}
+    if set(cost) != {"flops", "bytes accessed"}:
+        raise ValueError(
+            f"report {report.name!r} carries no counted cost (cost keys "
+            f"{sorted(cost)[:4]}{'...' if len(cost) > 4 else ''}): "
+            "re-capture it with repro_torch, whose captures count FLOPs "
+            "and bytes")
+    return roofline.analyze(
+        arch=arch or report.name,
+        mesh_name=mesh_name,
+        cost=cost,
+        ops=report.compiled_ops,
+        topo=report.topo,
+        hw=report.topo.hw,
+        model_flops=model_flops,
+        memory_stats=report.memory_stats,
+        algorithm=algorithm,
+        link_utilization=report.link_utilization(algorithm),
+    )

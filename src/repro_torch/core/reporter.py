@@ -5,8 +5,10 @@ terminal half of ``repro.core.reporter``).
   per session phase,
 * the ``(d+1) x (d+1)`` communication matrix rendered as an ASCII heatmap in
   log scale (paper Figs. 2 & 3),
-* the traced-vs-issued diff table,
-* the lint findings table.
+* the traced-vs-issued diff table, the phase-against-phase diff table and
+  the modeled-vs-measured compare table,
+* the lint findings table,
+* the matrix as CSV (shared by the CSV and HTML exporters).
 """
 from __future__ import annotations
 
@@ -130,6 +132,38 @@ def phase_usage_table(phase_summaries: dict, title: str = "") -> str:
     return out
 
 
+def _signed_bytes(n: float) -> str:
+    return ("-" if n < 0 else "+") + human_bytes(abs(n))
+
+
+def compare_table(result, title: str = "") -> str:
+    """Modeled-vs-measured table for a
+    :class:`~repro_torch.core.trace.compare.CompareResult` (per-collective
+    rows plus per-kind / per-size-class aggregates)."""
+    return result.table(title)
+
+
+def phase_diff_table(a_name: str, a_summary: dict,
+                     b_name: str, b_summary: dict) -> str:
+    """Primitive-by-primitive comparison of two phases' communication
+    (calls + wire bytes, with the wire-byte delta b - a)."""
+    names = sorted(set(a_summary) | set(b_summary))
+    rows = []
+    for n in names:
+        a = a_summary.get(n, {})
+        b = b_summary.get(n, {})
+        rows.append([
+            n,
+            f"{a.get('calls', 0):,}", human_bytes(a.get("wire_bytes", 0.0)),
+            f"{b.get('calls', 0):,}", human_bytes(b.get("wire_bytes", 0.0)),
+            _signed_bytes(b.get("wire_bytes", 0.0)
+                          - a.get("wire_bytes", 0.0)),
+        ])
+    return format_table(rows, [
+        "Primitive", f"{a_name} calls", f"{a_name} wire",
+        f"{b_name} calls", f"{b_name} wire", "Δ wire"])
+
+
 # ---------------------------------------------------------------------------
 # paper Fig. 2/3 — communication-matrix heatmap (log scale), ASCII rendering
 # ---------------------------------------------------------------------------
@@ -165,6 +199,17 @@ def coarsen_matrix(mat, max_devices: int = 32) -> tuple[np.ndarray, int]:
     hm[0, 1:] = np.pad(m[0, 1:], (0, pad)).reshape(nb, k).sum(1)
     hm[1:, 0] = np.pad(m[1:, 0], (0, pad)).reshape(nb, k).sum(1)
     return hm, k
+
+
+def matrix_to_csv(mat: np.ndarray) -> str:
+    d = mat.shape[0]
+    header = "," + ",".join(["host"] + [f"gpu{i}" for i in range(d - 1)])
+    lines = [header]
+    for i in range(d):
+        name = "host" if i == 0 else f"gpu{i-1}"
+        lines.append(name + "," + ",".join(f"{mat[i, j]:.0f}"
+                                           for j in range(d)))
+    return "\n".join(lines)
 
 
 def ascii_heatmap(mat: np.ndarray, title: str = "", log: bool = True,

@@ -25,6 +25,9 @@ traced-vs-compiled diff waits.  Every capture keeps its def-use record
 (:mod:`repro_torch.core.defuse`), the port's stand-in for the compiled
 module that the lint's def-use rules walk, as the reference always keeps
 the HLO; under ``FakeTensorMode`` the tensors it holds allocate nothing.
+Every capture also counts its FLOPs and bytes, one device's
+(:mod:`repro_torch.core.op_cost`); the report's ``cost`` sums them over
+the captures, as the reference sums each capture's ``cost_analysis``.
 """
 from __future__ import annotations
 
@@ -74,6 +77,7 @@ class Capture:
     traced: list[TraceEvent]
     trace_seconds: float
     graph: DefUseGraph
+    cost: dict                  # {"flops", "bytes accessed"}, one device
 
 
 class MonitorSession:
@@ -146,7 +150,7 @@ class MonitorSession:
         rec = self._phase_record(phase_name)
         t0 = time.perf_counter()
         with self.fake_mode, CollectiveInterceptor(
-                self.mesh, defuse=True) as icpt:
+                self.mesh, defuse=True, cost=True) as icpt:
             icpt.defuse.note_inputs((args, kwargs))
             returned = fn(*args, **kwargs)
         seconds = time.perf_counter() - t0
@@ -161,7 +165,8 @@ class MonitorSession:
             ev.phase = phase_name
         cap = Capture(name=name or getattr(fn, "__name__", "fn"),
                       phase=phase_name, ops=ops, traced=list(icpt.events),
-                      trace_seconds=seconds, graph=graph)
+                      trace_seconds=seconds, graph=graph,
+                      cost=icpt.cost.cost())
         self.captures.append(cap)
         rec.num_captures += 1
         rec.trace_seconds += seconds
@@ -207,6 +212,14 @@ class MonitorSession:
         """The captures' def-use graphs, one a capture."""
         return [c.graph for c in self.captures]
 
+    def _merged_cost(self) -> dict:
+        """Per-device FLOPs and bytes summed over the captures."""
+        out: dict[str, float] = {}
+        for cap in self.captures:
+            for k, v in cap.cost.items():
+                out[k] = out.get(k, 0.0) + float(v)
+        return out
+
     # -- views and snapshots -----------------------------------------------
     def view(self, algorithm: Optional[str] = None,
              phase: Optional[str] = None) -> CommView:
@@ -238,7 +251,7 @@ class MonitorSession:
             compiled_summary=v.summary,
             matrix=v.matrix,
             per_primitive=v.per_primitive,
-            cost={},
+            cost=self._merged_cost(),
             memory_stats=None,
             trace_seconds=self.trace_seconds,
             compile_seconds=0.0,

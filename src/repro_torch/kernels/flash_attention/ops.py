@@ -38,8 +38,9 @@ def _flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      causal: bool, window: int,
                      q_offset: int) -> torch.Tensor:
     if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             q_offset=q_offset)
+        # in the layout the kernel and the fake give: empty_like(q)
+        return torch.empty_like(q).copy_(attention_ref(
+            q, k, v, causal=causal, window=window, q_offset=q_offset))
     return _launch(q, k, v, causal, window, q_offset)
 
 

@@ -65,7 +65,9 @@ def _flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, cache_len: torch.Tensor,
                   window: int) -> torch.Tensor:
     if q.device.type == "cpu":
-        return decode_ref(q, k_cache, v_cache, cache_len, window=window)
+        # in the layout the kernel and the fake give: empty_like(q)
+        return torch.empty_like(q).copy_(
+            decode_ref(q, k_cache, v_cache, cache_len, window=window))
     return _launch(q, k_cache, v_cache, cache_len, window)
 
 

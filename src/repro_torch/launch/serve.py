@@ -28,8 +28,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch import configs
-from repro_torch.core import MonitorSession, fake_mesh
+from repro_torch import configs, sweep
+from repro_torch.core import fake_mesh
 from repro_torch.models import build_model
 from repro_torch.parallel import Sharder
 from repro_torch.serve import generate
@@ -100,32 +100,18 @@ def serve(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int = 0,
 def monitor(cfg, *, mesh_shape=(4, 2), batch: int, prompt_len: int,
             tokens: int, device: str = "cuda", name: str = ""):
     """Two-phase (prefill, decode) capture of the serve step on a fake
-    ``data x model`` mesh under ``FakeTensorMode``: nothing is allocated.
-    Returns the session's :class:`~repro_torch.core.CommReport`."""
+    ``data x model`` mesh under ``FakeTensorMode``, bf16 parameters:
+    nothing is allocated.  Returns the session's
+    :class:`~repro_torch.core.CommReport`."""
     dev = resolve_device(device)
     names = ("data", "model")[:len(mesh_shape)]
     mesh = fake_mesh(mesh_shape, names, device=dev.type)
-    shd = Sharder(mesh)
-    model = build_model(cfg)
-    max_len = prompt_len + tokens
-    sess = MonitorSession(mesh=mesh, name=name or f"serve[{cfg.name}]")
-    with sess.fake_mode:
-        params = shd.shard_tree(model.shapes(dev, torch.bfloat16),
-                                model.axes())
-        cache = shd.shard_tree(model.cache_shapes(batch, max_len, dev),
-                               model.cache_axes())
-        cache["len"] = torch.full((), prompt_len, dtype=torch.int32,
-                                  device=dev)
-        prompts = torch.zeros((batch, prompt_len), dtype=torch.long,
-                              device=dev)
-        step_tokens = torch.zeros((batch, 1), dtype=torch.long, device=dev)
-    with sess.phase("prefill"):
-        sess.capture(lambda p, b: model.prefill(p, b, shd, max_len=max_len),
-                     params, {"tokens": prompts}, name="prefill")
-    with sess.phase("decode"):
-        sess.capture(lambda p, c, b: model.decode_step(p, c, b, shd),
-                     params, cache, {"tokens": step_tokens}, name="decode")
-    return sess.report()
+    return sweep._monitor_cell(
+        lambda m: sweep.serve_cell(m, cfg, batch=batch,
+                                   prompt_len=prompt_len,
+                                   max_len=prompt_len + tokens,
+                                   dtype=torch.bfloat16),
+        mesh, name or f"serve[{cfg.name}]")
 
 
 def main(argv=None):

@@ -77,3 +77,22 @@ def test_lint_and_trace_load_without_jax():
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    cwd=ROOT, timeout=120)
+
+
+@pytest.mark.parametrize("modules", [
+    "repro_torch.core.op_cost, repro_torch.core.roofline",
+    "repro_torch.core.report_cache, repro_torch.core.export.csv_exporter, "
+    "repro_torch.core.export.html_exporter, "
+    "repro_torch.core.export.json_exporter",
+    "repro_torch.cli, repro_torch.__main__",
+])
+def test_front_end_loads_without_jax(modules):
+    """The roofline, the exporters, the report cache, the sweep engine and
+    the command line, each imported alone in a fresh interpreter."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = (f"import sys, {modules}; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   cwd=ROOT, timeout=120)
