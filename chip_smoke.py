@@ -15,7 +15,9 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               and, where one PyTorch call computes the same function, that
               call's time; RMSNorm's prefill shapes also cold (inputs
               rotated through more than the L2 cache), and once the launch
-              floor (an 8-element add); then the registers and spills of
+              floor (an 8-element add); flash attention and RG-LRU also
+              at the lm-train phase's microbatch (one 1024-token
+              sequence); then the registers and spills of
               every RMSNorm and attention kernel instance launched.  Then
               the gradient check: backward through each of the four ops at
               the serve paths' prefill shapes (and RG-LRU's decode step)
@@ -51,10 +53,34 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               each is profiled under torch.profiler (CPU and CUDA, shapes
               recorded) and its Chrome trace written under ``build/`` for
               phase 7.  The group is destroyed at the end of the phase;
+lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
+              RecurrentGemma-2B at its published width and depth, then
+              Qwen3-8B at its published width cut to 8 layers (36 would
+              not fit), each freed before the next: 10 steps of the TRAIN
+              preset (8 microbatches of one 1024-token sequence, remat
+              full) from random fp32 weights, AdamW with fp32 moments.
+              The launch counters are zeroed just before the run and read
+              just after: they must be 10 x ``expected_train_launches``.
+              Losses must be finite and the last below the first; the
+              median step (steps 2-10), tokens/s and peak memory are
+              printed.  The first step is run again from the same start
+              with each kernel launch replaced by its plain version and
+              held to the kernels' loss and gradient norm (1e-4 of
+              each); one more step is profiled (device busy and idle
+              share); in the step after it, CUDA events around each call
+              of the plain backwards (attention, RG-LRU's reverse scan)
+              give their share of that step; the step's bf16 FLOP bound is
+              printed.  Then each
+              reduced config, 2 steps in fp32 on the card against the CPU
+              from the same start, and 4 steps straight against 2, a
+              checkpoint, a resume and 2 more;
 5. monitor -- for each architecture, the two-phase prefill/decode capture at
               full width on a fake 4x2 mesh, under FakeTensorMode on
               ``cuda``; its per-phase collective calls must equal a pinned
-              table, and the report is saved, reloaded and compared.  Then
+              table, and the report is saved, reloaded and compared; and
+              its train step (the TRAIN preset's remat, one microbatch,
+              8 x 128 tokens) at full width and depth, its calls and
+              payload bytes by kind held to a pinned table.  Then
               each paper application's one-step capture at the same sizes
               on a fake 8-way ``cuda`` data mesh: its per-kind calls and
               payload bytes must equal a pinned table, its all-reduces the
@@ -88,8 +114,10 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
 8. cli     -- the port's command line, ``python -m repro_torch``, in
               subprocesses on the card (captures on fake ``cuda`` meshes,
               a report cache under ``build/cli``): ``configs`` must list
-              the four sweep configs; ``sweep`` of every config on 4x2 and
-              2x2x2 with ring and hierarchical, by phase and linted, run
+              the six sweep configs (the paper apps, serve and the two
+              architectures' train steps); ``sweep`` of every config on
+              4x2 and 2x2x2 with ring and hierarchical, by phase and
+              linted, run
               twice: the cold run captures each (config, mesh) cell once,
               the warm run captures nothing and hits the cache for every
               cell, the summary CSV keeps the reference's header and each
@@ -138,6 +166,15 @@ ARCHS = ("qwen3_8b", "recurrentgemma_2b")
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 128, 32
 PAPER_APPS = ("resnet", "gnmt", "paper")
 TRAIN_STEPS = 10
+# the lm-train phase: each architecture at its published width (depth cut
+# where one card cannot hold the state: None keeps it), the TRAIN preset,
+# global batch 8 x 1024 tokens, the reference launcher's 10 warm-up steps.
+# Peak lr 3e-4, a tenth of the launcher's 3e-3: at 3e-3 both full-width
+# models diverged within ten steps on the H100 (losses 12.94 -> 13.95 and
+# 12.44 -> 13.42, spikes to 18.4 and 16.9), Adam moving every weight of
+# std ~0.02 by up to 3e-3 a step
+LM_ARCHS = {"recurrentgemma_2b": None, "qwen3_8b": 8}
+LM_BATCH, LM_SEQ, LM_LR = 8, 1024, 3e-4
 
 
 def fail(msg: str) -> None:
@@ -350,7 +387,7 @@ def check_kernels() -> dict:
     # RecurrentGemma-2B's MQA at dh 256, causal and windowed; all bf16 on the
     # tensor-core kernel, then one f16 case on the same kernel and one fp32
     # case on the CUDA-core kernel
-    errs, main = [], None
+    errs, main, train_shapes = [], None, {}
     f32 = torch.float32
     for case, sq, skv, h, kvh, dh, window, q_offset, dtype, tol in (
             ("causal B8 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0,
@@ -372,10 +409,16 @@ def check_kernels() -> dict:
              torch.float16, 2e-2),
             # tests/test_kernels.py fp32 tolerance
             ("fp32 causal B8 S128", PROMPT_LEN, PROMPT_LEN, 32, 8, 128, 0, 0,
-             f32, 2e-5)):
-        q = randn(BATCH, sq, h, dh).to(dtype)
-        k = randn(BATCH, skv, kvh, dh).to(dtype)
-        v = randn(BATCH, skv, kvh, dh).to(dtype)
+             f32, 2e-5),
+            # the lm-train phase's microbatch: one 1024-token sequence
+            ("train qwen B1 S1024", LM_SEQ, LM_SEQ, 32, 8, 128, 0, 0, bf16,
+             2e-2),
+            ("train rg B1 S1024 window2048", LM_SEQ, LM_SEQ, 10, 1, 256,
+             2048, 0, bf16, 2e-2)):
+        nb = 1 if case.startswith("train") else BATCH
+        q = randn(nb, sq, h, dh).to(dtype)
+        k = randn(nb, skv, kvh, dh).to(dtype)
+        v = randn(nb, skv, kvh, dh).to(dtype)
 
         def kernel():
             return fa_ops.attend(q, k, v, causal=True, window=window,
@@ -407,14 +450,19 @@ def check_kernels() -> dict:
         pairs = int(mask.sum().item())
         size = q.element_size()
         b, by = bound_ms(size * (2 * q.numel() + k.numel() + v.numel()),
-                         4 * BATCH * h * pairs * dh,
+                         4 * nb * h * pairs * dh,
                          FP32_FLOPS if dtype == f32 else BF16_FLOPS)
         record("flash_attention", case, err, tol, ms, plain_ms, lib, b, by)
+        if nb == 1:
+            train_shapes[case] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib, bound_ms=b,
+                                      max_abs_err=err)
         errs.append(err)
         if main is None:
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b,
                         bound_by=by)
-    results["flash_attention"] = dict(main, max_abs_err=max(errs))
+    results["flash_attention"] = dict(main, max_abs_err=max(errs),
+                                      train_shapes=train_shapes)
 
     # -- flash decode.  The serve paths decode a cache of PROMPT_LEN +
     # NEW_TOKENS = 160 slots from cache_len 129 (the first step) on:
@@ -500,18 +548,21 @@ def check_kernels() -> dict:
     results["flash_decode"] = dict(main, max_abs_err=max(errs))
     check_kernel_attrs(launched)
 
-    # -- RG-LRU: RecurrentGemma-2B's prefill (8,128,2560) from a zero state
-    # and its decode step (8,1,2560) carrying h0, fp32.  No single PyTorch
-    # call computes a linear recurrence, so there is no library time
+    # -- RG-LRU: RecurrentGemma-2B's prefill (8,128,2560) from a zero state,
+    # its decode step (8,1,2560) carrying h0 and the lm-train phase's
+    # microbatch (1,1024,2560), fp32.  No single PyTorch call computes a
+    # linear recurrence, so there is no library time
     tol = 1e-4   # the same fp32 recurrence; only FMA contraction may differ
-    errs, main = [], None
+    errs, main, train_shapes = [], None, {}
     d_rnn = 2560
-    for case, s_len, with_h0 in (("prefill (8,128,2560)", PROMPT_LEN, False),
-                                 ("decode (8,1,2560) h0", 1, True)):
-        x = torch.randn(BATCH, s_len, d_rnn, generator=gen, device=dev)
-        la = -F.softplus(torch.randn(BATCH, s_len, d_rnn, generator=gen,
+    for case, nb, s_len, with_h0 in (
+            ("prefill (8,128,2560)", BATCH, PROMPT_LEN, False),
+            ("decode (8,1,2560) h0", BATCH, 1, True),
+            ("train (1,1024,2560)", 1, LM_SEQ, False)):
+        x = torch.randn(nb, s_len, d_rnn, generator=gen, device=dev)
+        la = -F.softplus(torch.randn(nb, s_len, d_rnn, generator=gen,
                                      device=dev))
-        h0 = (torch.randn(BATCH, d_rnn, generator=gen, device=dev)
+        h0 = (torch.randn(nb, d_rnn, generator=gen, device=dev)
               if with_h0 else None)
         out = rg_ops.rglru_scan(x, la, h0)
         torch.cuda.synchronize()
@@ -521,11 +572,15 @@ def check_kernels() -> dict:
         nbytes = 3 * x.numel() * 4 + (h0.numel() * 4 if with_h0 else 0)
         b, by = bound_ms(nbytes, 3 * x.numel(), FP32_FLOPS)
         record("rglru", case, err, tol, ms, plain, None, b, by)
+        if nb == 1:
+            train_shapes[case] = dict(ms=ms, plain_ms=plain, library_ms=None,
+                                      bound_ms=b, max_abs_err=err)
         errs.append(err)
         if main is None:
             main = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
                         bound_by=by)
-    results["rglru"] = dict(main, max_abs_err=max(errs))
+    results["rglru"] = dict(main, max_abs_err=max(errs),
+                            train_shapes=train_shapes)
     return results
 
 
@@ -769,39 +824,50 @@ def run_serve(arch: str) -> tuple[dict, dict]:
     return counts, res
 
 
+def _device_rows(prof) -> list:
+    """``(name, device ms, calls)`` of every device activity in a finished
+    trace, by summing the raw kineto events by name (user annotations
+    left out), which skips the profiler's Python event tree (minutes for a
+    train step's ~450k kernels)."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0 \
+                and not e.is_user_annotation():
+            ns, n = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), n + 1)
+    return [(k, ns / 1e6, n) for k, (ns, n) in by_name.items()]
+
+
 def profile_window(name: str, fn):
-    """``torch.profiler`` over one call of ``fn``: the ten device kernels
-    with the most self time, then every kernel of the port's, and the
-    device's idle share of the wall time (both under the profiler).
-    Returns the device's busy ms, or None when the trace has no device
-    time."""
+    """``torch.profiler`` over one call of ``fn``, tracing the device
+    alone: the ten device kernels with the most self time, then every
+    kernel of the port's, and the device's idle share of the wall time
+    (both under the profiler).  Returns the device's busy ms, or None when
+    the trace has no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None
-            and str(e.device_type).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    rows = _device_rows(prof)
+    busy_ms = sum(ms for _, ms, _ in rows)
     if not rows:
         log(f"[profile] {name}: no device time in the trace "
             "(device busy share not measured)")
         return None
     log(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
-    rows.sort(key=lambda e: -e.self_device_time_total)
+    rows.sort(key=lambda r: -r[1])
     # the top ten, then the port's own kernels below them
-    for e in rows[:10] + [e for e in rows[10:]
-                          if any(k in e.key for k in KERNEL_META)]:
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
-            f"{e.count:6d} calls  {e.key[:90]}")
+    for key, ms, count in rows[:10] + [r for r in rows[10:]
+                                       if any(k in r[0] for k in KERNEL_META)]:
+        log(f"[profile]   {ms:9.3f} ms {count:6d} calls  {key[:90]}")
     return busy_ms
 
 
@@ -885,6 +951,54 @@ def run_monitor(arch: str):
         fail(f"{cfg.name} per-phase collective calls {calls} != expected "
              f"{MONITOR_CALLS[arch]}")
     save_and_reload(rep, arch)
+    return rep
+
+
+# Each architecture's full-width train step (the TRAIN preset's remat, one
+# microbatch: every microbatch repeats the same collectives) on a fake 4x2
+# ``cuda`` mesh, global batch 8 x 128 tokens: kind -> (calls, payload
+# bytes).  FSDP all-gathers of the weights in the forward and again in the
+# recomputed forward, reduce-scatters of their gradients, the all-to-alls of
+# DTensor's shard-to-shard moves, and one scalar all-reduce a sharded leaf
+# for the gradient norm
+TRAIN_MONITOR = {
+    "qwen3_8b": {"all-gather": (401, 16428838912),
+                 "all-reduce": (202, 1526735064),
+                 "all-to-all": (617, 10351542272),
+                 "reduce-scatter": (616, 49540497408)},
+    "recurrentgemma_2b": {"all-gather": (297, 9466556416),
+                          "all-reduce": (341, 1887998864),
+                          "all-to-all": (353, 3449815040),
+                          "reduce-scatter": (424, 21044920320)},
+}
+
+
+def run_train_monitor(arch: str):
+    """Phase 5's train capture of one architecture at its published width
+    and depth (``launch.train.monitor``), held to :data:`TRAIN_MONITOR`,
+    saved and reloaded.  Returns the report."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch
+
+    cfg = launch_serve.model_config(arch)
+    tcfg = dataclasses.replace(configs.train_config(arch), microbatches=1)
+    t0 = time.perf_counter()
+    rep = launch.monitor(cfg, ocfg=launch.opt_config(LM_LR, TRAIN_STEPS),
+                         tcfg=tcfg, mesh_shape=(4, 2), global_batch=BATCH,
+                         seq_len=PROMPT_LEN, device="cuda")
+    kinds = {k: (r["calls"], r["payload_bytes"])
+             for k, r in rep.compiled_summary.items()}
+    log(f"[monitor] {cfg.name} {cfg.n_layers}L train step ({BATCH} x "
+        f"{PROMPT_LEN} tokens, remat {tcfg.remat}) on a fake 4x2 mesh: "
+        f"{len(rep.compiled_ops)} collectives captured in "
+        f"{time.perf_counter() - t0:.3f} s; by kind {kinds}")
+    if kinds != TRAIN_MONITOR.get(arch):
+        fail(f"{cfg.name} train capture {kinds} != expected "
+             f"{TRAIN_MONITOR.get(arch)}")
+    save_and_reload(rep, f"train_{arch}")
     return rep
 
 
@@ -1174,6 +1288,320 @@ def run_train() -> tuple[dict, dict]:
     return live, traces
 
 
+# ---------------------------------------------------------------------------
+# the lm-train phase
+# ---------------------------------------------------------------------------
+def expected_train_launches(cfg, tcfg) -> dict:
+    """Kernel launches of one train step of ``cfg`` under ``tcfg``: per
+    microbatch, then times the microbatches.  A layer checkpointed by the
+    remat policy runs its forward again in the backward, launching its
+    kernels again (the plain backwards launch none): the transformer's
+    layers unless ``remat == "none"``, GriffinLM's superblocks always (the
+    reference's ``dots``), never its tail layers or the final norm.  Two
+    RMSNorms a layer (norm1, norm2), two more an attention layer with
+    qk-norm, one flash attention an attention layer, one RG-LRU scan a
+    recurrent layer, and the final norm."""
+    a = max(1, tcfg.microbatches)
+    qk = 2 if cfg.qk_norm else 0
+    if cfg.family == "hybrid":
+        ns = cfg.n_layers // 3
+        nt = cfg.n_layers - 3 * ns
+        norms = 2 * ns * (6 + qk) + 2 * nt + 1
+        counts = {"rmsnorm": norms, "flash_attention": 2 * ns,
+                  "rglru": 2 * 2 * ns + nt}
+    else:
+        r = 1 if tcfg.remat == "none" else 2
+        counts = {"rmsnorm": r * cfg.n_layers * (2 + qk) + 1,
+                  "flash_attention": r * cfg.n_layers, "rglru": 0}
+    return dict({k: a * v for k, v in counts.items()}, flash_decode=0)
+
+
+def lm_train_flops(model, tcfg) -> float:
+    """FLOPs of one train step at the phase's traffic, counted by
+    ``repro_torch.core.op_cost`` on one microbatch (one sequence, the
+    update included) under ``FakeTensorMode``, times the microbatches:
+    forward, recomputed forward and backward, each kernel op by its
+    formula (flash attention as full score blocks)."""
+    import dataclasses
+
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.op_cost import OpCostMode
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel import Sharder
+    from repro_torch.train.train import make_train_step, train_state_shapes
+
+    one = dataclasses.replace(tcfg, microbatches=1)
+    with FakeTensorMode():
+        state = train_state_shapes(model, OptConfig(), device="cuda")
+        batch = {k: torch.zeros((1, LM_SEQ), dtype=torch.int32,
+                                device="cuda") for k in ("tokens", "labels")}
+        step = make_train_step(model, OptConfig(), one, Sharder())
+        with OpCostMode() as oc:
+            step(state, batch)
+    return oc.cost()["flops"] * max(1, tcfg.microbatches)
+
+
+def timed_plain_backwards(fn) -> tuple:
+    """One call of ``fn`` (a train step) with a CUDA event pair around
+    every call of the plain attention and RG-LRU backwards
+    (``kernels/*/ref.py``) inside it.  Returns the step's wall ms (host
+    clock, ending in a synchronize) and, by backward, its calls and the
+    device ms between its events, summed: the time each backward held the
+    stream in this step, the gaps the host left in it included."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.rglru import ops as rg_ops
+
+    spans = {"attention": [], "rglru": []}
+
+    def timed(name, bwd):
+        def call(*args, **kwargs):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = bwd(*args, **kwargs)
+            pair[1].record()
+            spans[name].append(pair)
+            return out
+        return call
+
+    torch.cuda.synchronize()
+    with mock.patch.object(fa_ops, "attention_bwd",
+                           timed("attention", fa_ops.attention_bwd)), \
+            mock.patch.object(rg_ops, "rglru_bwd",
+                              timed("rglru", rg_ops.rglru_bwd)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, {name: (len(pairs), sum(s.elapsed_time(e)
+                                            for s, e in pairs))
+                     for name, pairs in spans.items()}
+
+
+def run_lm_train(arch: str) -> dict:
+    """The lm-train phase for one architecture at its published width:
+    ``launch.train.train`` for TRAIN_STEPS steps of the TRAIN preset on the
+    card, the launch counters zeroed just before and read just after (they
+    must be TRAIN_STEPS x ``expected_train_launches``); the losses finite
+    and falling.  Then, from the same start (seed 0 on the card), the first
+    step with each kernel launch replaced by its plain version, held
+    against the kernels' first step;
+    that state's next step under torch.profiler; the plain backwards'
+    share of the step after it, timed inside it; the step's bf16 FLOP
+    bound.  Returns the
+    launch counts and the numbers for the JSON line."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import SyntheticLMData
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_ref
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import Sharder
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = launch_serve.model_config(arch, LM_ARCHS[arch])
+    tcfg = configs.train_config(arch)
+    ocfg = launch.opt_config(LM_LR, TRAIN_STEPS)
+    mods = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
+            "flash_decode": fd_ops, "rglru": rg_ops}
+    secs, t0 = {}, time.perf_counter()
+    for m in mods.values():
+        m.launches = 0
+    res = launch.train(cfg, steps=TRAIN_STEPS, global_batch=LM_BATCH,
+                       seq_len=LM_SEQ, ocfg=ocfg, tcfg=tcfg, device="cuda",
+                       log=log)
+    torch.cuda.synchronize()
+    counts = {name: m.launches for name, m in mods.items()}
+    secs["train"] = time.perf_counter() - t0
+    expect = {k: TRAIN_STEPS * v
+              for k, v in expected_train_launches(cfg, tcfg).items()}
+    n_params = sum(p.numel() for p in tree_leaves(res["state"]["params"]))
+    losses, gnorms = res["losses"], res["grad_norms"]
+    log(f"[lm-train] {cfg.name} d{cfg.d_model} {cfg.n_layers} layers, "
+        f"{n_params / 1e9:.3f} B parameters, {TRAIN_STEPS} steps of "
+        f"{LM_BATCH} x {LM_SEQ} tokens ({tcfg.microbatches} microbatches, "
+        f"remat {tcfg.remat}): median step {res['median_step_ms']:.1f} ms "
+        f"(steps 2-{TRAIN_STEPS}) | {res['tokens_per_s']:.1f} tokens/s | "
+        f"max memory {res['max_memory_bytes'] / 2**30:.2f} GiB")
+    log(f"[lm-train] {cfg.name} losses {[round(v, 4) for v in losses]}; "
+        f"grad_norm {[round(v, 3) for v in gnorms]}; step ms "
+        f"{[round(v, 1) for v in res['step_ms']]}")
+    log(f"[lm-train] {cfg.name} kernel launches of {TRAIN_STEPS} steps "
+        f"{counts} (expected {expect})")
+    if counts != expect:
+        fail(f"{cfg.name} train launch counts {counts} != expected {expect}")
+    if not all(math.isfinite(v) for v in losses + gnorms):
+        fail(f"{cfg.name}: non-finite loss or grad norm {losses} {gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"{cfg.name} did not learn: loss {losses[0]} -> {losses[-1]}")
+    model = res["model"]
+    out = {"counts": counts, "median_step_ms": res["median_step_ms"],
+           "tokens_per_s": res["tokens_per_s"],
+           "max_memory_gib": res["max_memory_bytes"] / 2**30,
+           "losses": losses}
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the first step again from the same start, each kernel launch replaced
+    # by its plain version (the ops' backward formulas are the same ones)
+    t0 = time.perf_counter()
+    state = init_train_state(model, ocfg, 0, device="cuda")
+    step = make_train_step(model, ocfg, tcfg, Sharder())
+    data = SyntheticLMData(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                           global_batch=LM_BATCH, seed=0)
+    with mock.patch.object(rn_ops, "_launch", lambda x, w, eps, plan=None:
+                           rmsnorm_ref(x, w, eps)), \
+            mock.patch.object(fa_ops, "_launch", lambda q, k, v, c, w, o:
+                              attention_ref(q, k, v, causal=c, window=w,
+                                            q_offset=o)), \
+            mock.patch.object(rg_ops, "_launch", rglru_ref):
+        _, met = step(state, data.batch_at(0, "cuda"))
+    loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+    # bf16 compute through every layer: each kernel's fp32 sums may flip a
+    # bf16 rounding the plain version made the other way, compounding over
+    # depth.  Measured on an H100 80GB HBM3 at 700 W: 1.7e-6 to 8.3e-6 of
+    # the loss and 3.3e-6 to 7.1e-6 of the gradient norm; 1e-4 of each is
+    # about ten times the largest, tight enough that a fault in a few
+    # layers' kernels shows
+    l_err, g_err = abs(loss - losses[0]), abs(gnorm - gnorms[0])
+    log(f"[lm-train] {cfg.name} first step against the plain versions: "
+        f"loss {losses[0]:.6f} vs {loss:.6f} (err {l_err:.2e}, tol "
+        f"{1e-4 * loss:.2e} = 1e-4 of it), grad_norm {gnorms[0]:.5f} vs "
+        f"{gnorm:.5f} (err {g_err:.2e}, tol {1e-4 * gnorm:.2e} = 1e-4 of "
+        "it)")
+    if not (l_err <= 1e-4 * loss and g_err <= 1e-4 * gnorm):
+        fail(f"{cfg.name}: the first train step differs from the plain "
+             "versions'")
+
+    # where one step's time goes; the plain backwards' share; the bound
+    secs["plain step"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = data.batch_at(1, "cuda")
+    busy = profile_window(f"{cfg.name} train step",
+                          lambda: step(state, batch))
+    secs["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = data.batch_at(2, "cuda")
+    bwd_step_ms, bwd = timed_plain_backwards(lambda: step(state, batch))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    # each attention and recurrent layer's backward once a microbatch
+    a = max(1, tcfg.microbatches)
+    n_attn = a * (cfg.n_layers // 3 if cfg.family == "hybrid"
+                  else cfg.n_layers)
+    want = {"attention": n_attn, "rglru": a * cfg.n_layers - n_attn
+            if cfg.family == "hybrid" else 0}
+    calls = {k: n for k, (n, _) in bwd.items()}
+    if calls != want:
+        fail(f"{cfg.name}: plain backward calls in one step {calls} != "
+             f"{want}")
+    share = {k: ms / bwd_step_ms for k, (n, ms) in bwd.items() if n}
+    log(f"[lm-train] {cfg.name} plain backwards inside one step of "
+        f"{bwd_step_ms:.1f} ms (CUDA events around each call): "
+        + "; ".join(f"{k} {n} calls, {ms:.1f} ms ({ms / n:.2f} a call) = "
+                    f"{share[k]:.3f} of the step"
+                    for k, (n, ms) in bwd.items() if n))
+    secs["plain backwards"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flops = lm_train_flops(model, tcfg)
+    secs["FLOP count"] = time.perf_counter() - t0
+    b_ms = flops / BF16_FLOPS * 1e3
+    log(f"[lm-train] {cfg.name} one step: {flops / 1e12:.3f} TFLOP "
+        f"(op_cost, with recompute), bf16 bound {b_ms:.1f} ms at 989 "
+        f"TFLOP/s = {b_ms / out['median_step_ms']:.3f} of the median step")
+    log(f"[lm-train] {cfg.name} seconds: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
+    return dict(out, busy_ms=busy, plain_bwd_step_ms=bwd_step_ms,
+                plain_bwd_ms={k: ms for k, (n, ms) in bwd.items() if n},
+                plain_bwd_share=share, tflop=flops / 1e12, bound_ms=b_ms)
+
+
+def run_lm_reduced(arch: str) -> None:
+    """The reduced config of ``arch`` on the card against the CPU, fp32
+    compute, TF32 off: two steps of the TRAIN preset (8 x 64 tokens) from
+    the same start (drawn on the CPU), the parameters held element by
+    element to 1e-5 x max(1, |p|).  Then, on the card, four steps straight
+    against two steps, a checkpoint, a resume and two more: the resumed
+    losses within 1e-4 of the straight run's (relative)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves, tree_unflatten
+    from repro_torch.train import init_train_state
+
+    cfg = dataclasses.replace(launch_serve.model_config(arch, reduced=True),
+                              compute_dtype="float32")
+    tcfg = configs.train_config(arch)
+    # eps 1e-3: Adam's first steps move each weight by ~lr x sign(g), so a
+    # gradient within rounding of zero could step either way on either
+    # device; a larger eps makes the update continuous in the gradient
+    ocfg = dataclasses.replace(launch.opt_config(LM_LR, TRAIN_STEPS),
+                               eps=1e-3)
+    start = init_train_state(build_model(cfg), ocfg, 0, device="cpu")
+
+    def on(device):
+        return tree_unflatten(start, [t.clone().to(device)
+                                      for t in tree_leaves(start)])
+
+    kw = dict(global_batch=LM_BATCH, seq_len=64, ocfg=ocfg, tcfg=tcfg,
+              log=lambda m: None)
+    card = launch.train(cfg, steps=2, device="cuda", state=on("cuda"), **kw)
+    cpu = launch.train(cfg, steps=2, device="cpu", state=on("cpu"), **kw)
+    worst = 0.0
+    for g, c in zip(tree_leaves(card["state"]["params"]),
+                    tree_leaves(cpu["state"]["params"])):
+        worst = max(worst, ((g.cpu() - c).abs()
+                            / c.abs().clamp_min(1.0)).max().item())
+    log(f"[lm-train] {cfg.name} 2 steps, card against CPU (fp32): "
+        f"parameters max |diff| / max(1, |p|) {worst:.3e} (tol 1e-5); "
+        f"losses card {[round(v, 6) for v in card['losses']]} CPU "
+        f"{[round(v, 6) for v in cpu['losses']]}")
+    if not worst <= 1e-5:
+        fail(f"{cfg.name}: two train steps on the card differ from the CPU's")
+
+    ckpt = ROOT / "build" / "lm_ckpt" / arch
+    shutil.rmtree(ckpt, ignore_errors=True)
+    straight = launch.train(cfg, steps=4, device="cuda", state=on("cuda"),
+                            **kw)
+    launch.train(cfg, steps=2, device="cuda", state=on("cuda"),
+                 ckpt_dir=str(ckpt), ckpt_every=2, **kw)
+    resumed = launch.train(cfg, steps=4, device="cuda", ckpt_dir=str(ckpt),
+                           ckpt_every=2, resume=True, **kw)
+    want, got = straight["losses"][2:], resumed["losses"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    # fp32 on the card is not bitwise run to run (the embedding backward
+    # adds with atomics): 1e-4 of the loss bounds that noise after a step
+    log(f"[lm-train] {cfg.name} resume at step {resumed['start']}: losses "
+        f"{[round(v, 6) for v in got]} against the straight run's "
+        f"{[round(v, 6) for v in want]} (max rel err {err:.2e}, tol 1e-4)")
+    if resumed["start"] != 2 or len(got) != 2 or not err <= 1e-4:
+        fail(f"{cfg.name}: the resumed run differs from the straight one")
+
+
 # Phase 7's lint findings of every phase-5 capture, rule -> count.  A
 # ``cuda`` mesh's shard-to-shard redistribution is one all-to-all, which no
 # rule flags; GNMT's startup Broadcast is an all-gather of 8 copies of
@@ -1290,7 +1718,8 @@ def count_prefill(res) -> dict:
 # phase 8: the command line on the card
 # ---------------------------------------------------------------------------
 CLI_DEVICE = "cuda"
-CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve")
+CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve", "qwen3_8b",
+               "recurrentgemma_2b")
 CLI_MESHES = ("4x2", "2x2x2")
 CLI_ALGORITHMS = ("ring", "hierarchical")
 # the reference's summary and scale CSV headers (repro.core.export.
@@ -1315,6 +1744,14 @@ CLI_SWEEP_CALLS = {
                        "all-to-all": 28, "reduce-scatter": 18},
     ("serve", "2x2x2"): {"all-gather": 54, "all-reduce": 18,
                          "all-to-all": 16, "reduce-scatter": 6},
+    ("qwen3_8b", "4x2"): {"all-gather": 71, "all-reduce": 42,
+                          "all-to-all": 2, "reduce-scatter": 26},
+    ("qwen3_8b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
+                            "all-to-all": 2, "reduce-scatter": 26},
+    ("recurrentgemma_2b", "4x2"): {"all-gather": 103, "all-reduce": 110,
+                                   "all-to-all": 14, "reduce-scatter": 50},
+    ("recurrentgemma_2b", "2x2x2"): {"all-gather": 103, "all-reduce": 144,
+                                     "all-to-all": 14, "reduce-scatter": 50},
 }
 # the scale curve's fleet sizes: the all-to-alls of a cuda capture hold
 # 1.0 M COO entries at 4096 devices and 4.2 M at 16384, which the
@@ -1538,7 +1975,18 @@ def main() -> None:
     live, traces = run_train()
     seconds["train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    lm = {}
+    for arch in LM_ARCHS:
+        lm[arch] = run_lm_train(arch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in LM_ARCHS:
+        run_lm_reduced(arch)
+    seconds["lm-train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     reports = {arch: run_monitor(arch) for arch in ARCHS}
+    for arch in ARCHS:
+        run_train_monitor(arch)
     for name in PAPER_APPS:
         reports[name] = run_paper_monitor(name, live[name])
     run_ring_monitor()
@@ -1559,11 +2007,19 @@ def main() -> None:
          "replaces": KERNEL_META[name][1],
          "launches": sum(c[name] for c in by_arch.values()),
          "launches_by_arch": {a: c[name] for a, c in by_arch.items()},
+         "train_launches_by_arch": {a: r["counts"][name]
+                                    for a, r in lm.items()},
+         "train_shapes": kernels[name].get("train_shapes", {}),
          **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
          "grad_max_abs_err": grad_errs[name]}
         for name in KERNEL_META],
+        "lm_train": {a: {k: r[k] for k in (
+            "median_step_ms", "tokens_per_s", "max_memory_gib", "busy_ms",
+            "plain_bwd_step_ms", "plain_bwd_ms", "plain_bwd_share",
+            "tflop", "bound_ms")}
+            for a, r in lm.items()},
         "phase_seconds": {k: round(v, 3) for k, v in seconds.items()}}
     log(json.dumps(line))
     smi = subprocess.run(

@@ -30,8 +30,8 @@ unless ``--device cpu`` is passed; a ``cuda`` capture needs a CUDA device,
 and there is no quiet fallback.  The reference's ``--devices`` (an XLA flag
 that forces host devices) has no meaning here: the mesh's ranks are the
 fake process group's.  The reference's ``bench`` (the paper-table
-benchmarks, not ported) and ``dryrun`` (LM training, not ported)
-subcommands are not offered.
+benchmarks) and ``dryrun`` (the production-mesh lowering of
+``launch/dryrun.py``) subcommands are not ported and not offered.
 """
 from __future__ import annotations
 

@@ -3,6 +3,7 @@
 (the published model uses 1e6): the reference is the target."""
 from repro_torch.configs import reduce_config
 from repro_torch.models.common import ModelConfig
+from repro_torch.train import TrainConfig
 
 CONFIG = ModelConfig(
     name="qwen3-8b", family="dense",
@@ -11,3 +12,5 @@ CONFIG = ModelConfig(
 )
 
 REDUCED = reduce_config(CONFIG)
+
+TRAIN = TrainConfig(microbatches=8, remat="full")

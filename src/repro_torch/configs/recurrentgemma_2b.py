@@ -3,6 +3,7 @@ local attention (window 2048), pattern (rec, rec, attn).  O(1) state +
 bounded window.  [arXiv:2402.19427; hf]"""
 from repro_torch.configs import reduce_config
 from repro_torch.models.common import ModelConfig
+from repro_torch.train import TrainConfig
 
 CONFIG = ModelConfig(
     name="recurrentgemma-2b", family="hybrid",
@@ -12,3 +13,5 @@ CONFIG = ModelConfig(
 )
 
 REDUCED = reduce_config(CONFIG)
+
+TRAIN = TrainConfig(microbatches=8, remat="full")

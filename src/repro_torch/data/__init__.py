@@ -1,3 +1,5 @@
-from .synthetic import SyntheticImageData, SyntheticSeq2Seq, host_transfer_log
+from .synthetic import (SyntheticImageData, SyntheticLMData, SyntheticSeq2Seq,
+                        host_transfer_log)
 
-__all__ = ["SyntheticImageData", "SyntheticSeq2Seq", "host_transfer_log"]
+__all__ = ["SyntheticImageData", "SyntheticLMData", "SyntheticSeq2Seq",
+           "host_transfer_log"]

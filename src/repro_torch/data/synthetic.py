@@ -37,6 +37,35 @@ def _put(arrays: dict, label: str, device) -> dict:
 
 
 @dataclasses.dataclass
+class SyntheticLMData:
+    """Zipf-ish token stream: tokens[t] depends only on (seed, step, host)."""
+
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    host_id: int = 0
+    num_hosts: int = 1
+
+    @property
+    def host_batch(self) -> int:
+        return self.global_batch // self.num_hosts
+
+    def batch_at(self, step: int, device="cuda") -> dict:
+        """``{"tokens", "labels"}``: int32 (host_batch, seq_len), the
+        labels the tokens shifted by one."""
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.host_id]))
+        # zipf-like marginal so loss curves are non-trivial
+        u = rng.random((self.host_batch, self.seq_len + 1))
+        toks = np.minimum(
+            (self.vocab_size * u ** 2.2).astype(np.int64),
+            self.vocab_size - 1).astype(np.int32)
+        return _put({"tokens": toks[:, :-1], "labels": toks[:, 1:]},
+                    f"lm_batch[{step}]", device)
+
+
+@dataclasses.dataclass
 class SyntheticImageData:
     """64x64 image classification batches (the paper's ResNet-18 setting)."""
 

@@ -73,6 +73,22 @@ class ModelConfig:
         return self.block_pattern[layer % len(self.block_pattern)]
 
 
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # "train" | "prefill" | "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+SHAPES_BY_NAME = {s.name: s for s in ALL_SHAPES}
+
+
 # ---------------------------------------------------------------------------
 # declarative parameter specs
 # ---------------------------------------------------------------------------
@@ -107,6 +123,12 @@ def _leaves(tree, prefix=()):
             yield from _leaves(v, prefix + (i,))
     else:
         yield prefix, tree
+
+
+def tree_paths(tree) -> list:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order, ``path`` the
+    tuple of dict keys and list indices down to the leaf."""
+    return list(_leaves(tree))
 
 
 def tree_leaves(tree) -> list:
@@ -197,7 +219,9 @@ def param_axes(specs):
 
 def layer_of(tree, l: int):
     """Layer ``l`` of every stacked ``(L, ...)`` leaf of a nested dict (the
-    slice the reference's ``scan`` over layers hands its body)."""
+    slice the reference's ``scan`` over layers hands its body).  A leaf may
+    also be a list of its ``L`` layers (the train step hands the loss one
+    autograd leaf a layer)."""
     if isinstance(tree, dict):
         return {k: layer_of(v, l) for k, v in tree.items()}
     return tree[l]
@@ -216,3 +240,14 @@ def rms_norm(x, w, eps: float = 1e-6, shd=None, axes=None):
         return rmsnorm_ops.rmsnorm(x, w, eps)
     return shd.local(lambda a, b: rmsnorm_ops.rmsnorm(a, b, eps), (x, w),
                      (axes, (None,) * w.dim()))
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean token cross-entropy in fp32; labels < 0 are ignored."""
+    logits = logits.float()
+    valid = (labels >= 0) if mask is None else mask
+    labels = torch.clamp_min(labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = (logz - gold) * valid
+    return nll.sum() / torch.clamp_min(valid.sum(), 1)

@@ -1,5 +1,5 @@
 """Shared neural layers (port of ``repro.models.layers``): embeddings, the
-SwiGLU MLP, LM logits and rotary embeddings.
+SwiGLU MLP, LM logits, the chunked LM loss and rotary embeddings.
 
 All layers take ``(params, x, ...)`` plus the
 :class:`~repro_torch.parallel.Sharder` for activation layouts, and keep the
@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .common import ModelConfig, Spec
 
@@ -77,6 +78,47 @@ def lm_logits(params_head, params_embed, h, cfg: ModelConfig, shd):
     else:
         w = params_head["w"].to(dt)
     return shd.constraint(h @ w, ("batch", "seq", "vocab"))
+
+
+def chunked_lm_loss(params_head, params_embed, h, labels, cfg: ModelConfig,
+                    shd, chunk: int = 512):
+    """Cross-entropy without materializing (B,S,V) logits.
+
+    One ``chunk`` of the sequence at a time: logits -> fp32 CE summed, labels
+    below 0 ignored; a sequence that ``chunk`` does not divide is one chunk.
+    Each chunk runs under ``torch.utils.checkpoint``, so its fp32 logits are
+    freed after its forward and recomputed in its backward: at most one
+    chunk's logits (B, chunk, V/tp) live at a time, where eager autograd
+    would keep every chunk's for the backward (the reference's scan body
+    holds the same cap with remat).
+    """
+    b, s, _ = h.shape
+    if s % chunk != 0:
+        chunk = s  # degenerate fallback (smoke tests with tiny seq)
+    if cfg.tie_embeddings:
+        w = params_embed["tok"].T
+    else:
+        w = params_head["w"]
+    w = w.to(h.dtype)
+
+    def body(hx, lx, w):
+        logits = shd.constraint(hx @ w, ("batch", "seq", "vocab")).float()
+        valid = lx >= 0
+        lab = torch.clamp_min(lx, 0).long()
+        logz = torch.logsumexp(logits, dim=-1)
+        # laid out before the last dim goes: on a vocab-sharded mesh the
+        # gather is a masked partial sum, reduced here (the reference's
+        # psum over the vocab shards)
+        gold = shd.constraint(torch.gather(logits, -1, lab[..., None]),
+                              ("batch", "seq", None))[..., 0]
+        return ((logz - gold) * valid).sum(), valid.sum()
+
+    nll = cnt = 0
+    for c in range(0, s, chunk):
+        n, v = checkpoint(body, h[:, c:c + chunk], labels[:, c:c + chunk], w,
+                          use_reentrant=False)
+        nll, cnt = nll + n, cnt + v
+    return nll / torch.clamp_min(cnt, 1)
 
 
 # ---------------------------------------------------------------------------

@@ -28,7 +28,10 @@ Where the port differs from the reference:
 * ``decode_step`` writes the new recurrent states and k/v into the caller's
   cache tensors in place and advances ``len`` in place (the reference
   returns a new cache); the returned cache is the same dict.
-* ``loss_fn`` (training) waits for the training slice.
+* ``loss_fn`` keeps the reference's checkpointing, whatever ``remat``
+  says: every superblock under the ``dots`` policy
+  (:func:`~repro_torch.models.transformer.with_remat`), the tail layers
+  without checkpointing.
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from repro_torch.kernels.rglru import ops as rglru_ops
 from . import attention, layers
 from .common import (ModelConfig, Spec, init_params, layer_of, param_axes,
                      param_shapes, rms_norm)
+from .transformer import with_remat
 
 RGLRU_C = 8.0
 CACHE_DTYPE = torch.bfloat16      # the reference's prefill hard-codes bf16
@@ -272,6 +276,39 @@ class GriffinLM:
                      ("batch", "seq", None))
         return layers.lm_logits(params.get("head"), params["embed"], x,
                                 self.cfg, shd)
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
+    def _super_fwd(self, x, sp, shd):
+        x, _ = self._rec_layer(sp["rec1"], x, shd)
+        x, _ = self._rec_layer(sp["rec2"], x, shd)
+        x, _ = self._attn_layer(sp["attn"], x, shd, None)
+        return x
+
+    def _trunk(self, params, x, shd, remat: Optional[str] = None):
+        """The superblocks, each under the ``dots`` policy whatever
+        ``remat`` says (the reference's choice), then the tail."""
+        sup = with_remat(lambda c, sp: self._super_fwd(c, sp, shd), "dots")
+        for i in range(self.n_super):
+            x = sup(x, layer_of(params["super"], i))
+        for i in range(self.n_tail):
+            x, _ = self._rec_layer(layer_of(params["tail"], i), x, shd)
+        return x
+
+    def loss_fn(self, params, batch, shd, remat: Optional[str] = None):
+        """``(loss, {"xent", "aux"})`` of ``batch`` (``tokens``,
+        ``labels``) through the chunked LM loss."""
+        cfg = self.cfg
+        x = self._inputs(params, batch, shd)
+        x = self._trunk(params, x, shd, remat)
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps, shd,
+                     ("batch", "seq", None))
+        labels = shd.shard(batch["labels"], ("batch", "seq"))
+        loss = layers.chunked_lm_loss(params.get("head"), params["embed"], x,
+                                      labels, cfg, shd)
+        return loss, {"xent": loss, "aux": torch.zeros(
+            (), dtype=torch.float32, device=loss.device)}
 
     # ------------------------------------------------------------------
     # serving: stacked per-group states

@@ -3,19 +3,48 @@
 
 Parameters keep the reference's stacked ``(L, ...)`` layout; the
 reference's ``scan`` over layers is a Python loop that indexes layer ``l``
-of each stacked tensor.  MoE waits for a later port slice.
+of each stacked tensor.  Its remat policies (``jax.checkpoint`` per layer)
+are ``torch.utils.checkpoint`` per layer: ``full`` saves nothing,
+``dots`` saves the outputs of the weight matmuls (``aten.mm``/``addmm``,
+the dots without batch dims that the reference's policy keeps) and
+recomputes everything else, the kernel ops included.  MoE waits for a
+later port slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention, layers
 from .common import (ModelConfig, init_params, layer_of, param_axes,
                      param_shapes, rms_norm)
 
 CACHE_DTYPE = torch.bfloat16   # the reference's prefill hard-codes bf16
+REMAT_POLICIES = ("none", "full", "dots")
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def with_remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under the named remat policy: ``none`` as it is, ``full``
+    checkpointed with nothing saved, ``dots`` with the weight matmuls'
+    outputs saved."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat policy {policy!r}; want one of "
+                         f"{REMAT_POLICIES}")
+    if policy == "none":
+        return fn
+    kw = {} if policy == "full" else {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _dots_policy)}
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False, **kw)
 
 
 class TransformerLM:
@@ -79,6 +108,24 @@ class TransformerLM:
         h = rms_norm(x, lp["norm2"], cfg.norm_eps, shd, act)
         x = x + layers.mlp(lp["mlp"], h, cfg, shd)
         return shd.constraint(x, act), new_cache
+
+    def loss_fn(self, params, batch, shd, remat: Optional[str] = None):
+        """``(loss, {"xent", "aux"})`` of ``batch`` (``tokens``,
+        ``labels``): each layer under the ``remat`` policy (None is
+        ``dots``, as in the reference), then the chunked LM loss."""
+        cfg = self.cfg
+        x = self._inputs(params, batch, shd)
+        layer = with_remat(lambda x, lp: self._layer_fn(x, lp, shd)[0],
+                           remat or "dots")
+        for l in range(cfg.n_layers):
+            x = layer(x, layer_of(params["layers"], l))
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps, shd,
+                     ("batch", "seq", None))
+        labels = shd.shard(batch["labels"], ("batch", "seq"))
+        loss = layers.chunked_lm_loss(params.get("head"), params["embed"], x,
+                                      labels, cfg, shd)
+        return loss, {"xent": loss, "aux": torch.zeros(
+            (), dtype=torch.float32, device=loss.device)}
 
     def _logits(self, params, x, shd):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps, shd,

@@ -67,6 +67,10 @@ class Sharder:
     def tp(self) -> int:
         return self.axis_size("model")
 
+    @property
+    def dp(self) -> int:
+        return self.logical_size("batch")
+
     # ------------------------------------------------------------------
     def spec(self, shape: Sequence[int],
              axes: Sequence[Optional[str]]) -> tuple:

@@ -2,8 +2,10 @@
 mesh x algorithm) cells and emit the comparative artifact set.
 
 The registry holds the paper's own applications -- the DDP microbenchmark,
-GNMT and ResNet-18 -- and the ``serve`` cell (reduced Qwen3-8B prefill and
-decode as two phases of one session).  A config's builder takes a
+GNMT and ResNet-18 --, the ``serve`` cell (reduced Qwen3-8B prefill and
+decode as two phases of one session) and one train-step cell per ported
+architecture (``qwen3_8b``, ``recurrentgemma_2b``: the reduced config,
+global batch ``2 x data``, sequence 64).  A config's builder takes a
 ``DeviceMesh`` and returns ``dict(fn=, args=, kwargs=, op_transform=)`` or
 ``dict(captures=[dict(phase=, name=, fn=, args=, kwargs=), ...])``;
 :func:`_monitor_cell` calls it under the session's ``FakeTensorMode``, so
@@ -29,8 +31,8 @@ builder's defaults are the reference's sweep sizes; ``launch.paper`` and
   is in the reference, invisible in the output.
 
 Capture meshes are ``cuda`` unless the caller passes ``device="cpu"``.
-The reference's ``moe-skew`` cell and its per-architecture train cells
-wait for the port's MoE layer and LM ``loss_fn``.
+The reference's ``moe-skew`` cell and its other eight architectures' cells
+wait for the port's MoE layer and those models.
 """
 from __future__ import annotations
 
@@ -262,7 +264,53 @@ def _build_serve(mesh):
                       max_len=48)
 
 
+def train_cell(mesh, cfg, *, global_batch: int, seq_len: int,
+               opt_cfg=None, train_cfg=None) -> dict:
+    """One LM train step of ``cfg`` (the port's
+    :func:`~repro_torch.train.train.make_train_step`) on ``mesh``: the
+    state placed by the Sharder from its logical axes (FSDP over ``data``,
+    TP over ``model``), a ``(global_batch, seq_len)`` token batch.  Called
+    under the session's fake mode."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel import Sharder
+    from repro_torch.train.train import (TrainConfig, make_train_step,
+                                         train_state_shapes,
+                                         train_state_shardings)
+    from repro_torch import configs
+
+    dev = mesh.device_type
+    shd = Sharder(mesh)
+    model = build_model(cfg)
+    ocfg = opt_cfg or OptConfig(name=cfg.optimizer,
+                                state_dtype=cfg.opt_state_dtype)
+    step = make_train_step(model, ocfg, train_cfg or TrainConfig(), shd)
+    state = shd.shard_tree(train_state_shapes(model, ocfg, dev),
+                           train_state_shardings(model, ocfg))
+    shape = ShapeConfig("train", seq_len=seq_len, global_batch=global_batch,
+                        kind="train")
+    return {"fn": step, "args": (state, configs.input_specs(cfg, shape, dev))}
+
+
+def _arch_builder(arch: str):
+    """Reduced-scale train step for one ported architecture (the
+    reference's ``_arch_builder``): global batch ``2 x data``, sequence 64,
+    the config's optimizer, ``TrainConfig()``."""
+
+    def build(mesh):
+        from repro_torch import configs
+
+        return train_cell(mesh, configs.config(arch, reduced=True),
+                          global_batch=2 * _data_axis_size(mesh),
+                          seq_len=64)
+
+    return build
+
+
 def _registry() -> dict[str, SweepSpec]:
+    from repro_torch import configs
+
     specs = [
         SweepSpec("paper", "paper §4 DDP microbenchmark (2-layer MLP, "
                   "bucketed AllReduce)", "v2:d=256,bucket=1,pod-dp",
@@ -277,6 +325,10 @@ def _registry() -> dict[str, SweepSpec]:
                   "session per cell (qwen3_8b reduced; use --by-phase)",
                   "v1:qwen3,prompt=32,max=48", _build_serve),
     ]
+    for arch in configs.ARCH_IDS:
+        specs.append(SweepSpec(
+            arch, f"reduced-scale {arch} train step (Sharder-sharded)",
+            "v1:reduced,seq=64", _arch_builder(arch)))
     return {s.name: s for s in specs}
 
 

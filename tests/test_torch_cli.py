@@ -29,7 +29,7 @@ def test_configs_lists_the_four_sweep_configs(capsys):
     assert main(["configs"]) == 0
     rows = capsys.readouterr().out.splitlines()[2:]
     assert [r.split("|")[0].strip() for r in rows] == \
-        ["paper", "gnmt", "resnet", "serve"]
+        ["paper", "gnmt", "resnet", "serve", "qwen3_8b", "recurrentgemma_2b"]
 
 
 def test_sweep_cold_then_warm(tmp_path, cache, capsys):

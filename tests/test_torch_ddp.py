@@ -203,8 +203,8 @@ def test_mesh_specs_match_reference():
         assert sweep.mesh_id(spec) == ref_sweep.mesh_id(spec)
     with pytest.raises(ValueError):
         sweep.parse_mesh("2x2x2x2")
-    assert sorted(sweep.available_configs()) == ["gnmt", "paper", "resnet",
-                                                 "serve"]
+    assert sorted(sweep.available_configs()) == [
+        "gnmt", "paper", "qwen3_8b", "recurrentgemma_2b", "resnet", "serve"]
     assert all(ref_sweep.available_configs()[n].version == s.version
                for n, s in sweep.available_configs().items())
 

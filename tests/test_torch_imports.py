@@ -96,3 +96,14 @@ def test_front_end_loads_without_jax(modules):
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], env=env, check=True,
                    cwd=ROOT, timeout=120)
+
+
+def test_train_entry_point_loads_without_jax():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    code = ("import sys, repro_torch.launch.train, repro_torch.checkpoint, "
+            "repro_torch.optim; "
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; "
+            "assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], env=env, check=True,
+                   cwd=ROOT, timeout=120)
