@@ -15,15 +15,25 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               and, where one PyTorch call computes the same function, that
               call's time; RMSNorm's prefill shapes also cold (inputs
               rotated through more than the L2 cache), and once the launch
-              floor (an 8-element add); flash attention and RG-LRU also
-              at the lm-train phase's microbatch (one 1024-token
-              sequence); then the registers and spills of
-              every RMSNorm and attention kernel instance launched.  Then
-              the gradient check: backward through each of the four ops at
-              the serve paths' prefill shapes (and RG-LRU's decode step)
-              against backward through its plain version on the card, at
-              the forward's tolerance; each op's forward must launch its
-              kernel once and its backward (plain formulas) none;
+              floor (an 8-element add); flash attention also at the
+              lm-train phase's microbatch (one 1024-token sequence).
+              RG-LRU's forward and backward kernels at its serve prefill
+              and decode shapes, the lm-train microbatch (1,1024,2560), a
+              ragged (1,1000,2560) and a long (1,8192,2560), each with the
+              kernel tests' inputs and in the model's regime (a near 1),
+              the forward within 1e-4 of ``rglru_ref`` and each backward
+              output within 1e-5 of max(1, max|ref|) of ``rglru_bwd``,
+              and both bit for bit equal to their split mirrors
+              (``rglru_split_ref``, ``rglru_bwd_split_ref``), with each
+              launch plan; the backward also at a transposed and an
+              expanded cotangent.  Then the registers and spills of
+              every kernel instance launched.  Then the gradient check:
+              backward through each of the four ops at the serve paths'
+              prefill shapes (and RG-LRU's decode step) against backward
+              through its plain version on the card, at the forward's
+              tolerance; each op's forward must launch its kernel once,
+              RG-LRU's backward its backward kernel once, the other
+              backwards (plain formulas) none;
 3. serve   -- for each served architecture (Qwen3-8B, then
               RecurrentGemma-2B), at its published width and depth, random
               weights from a seed, cast to bf16 once: 8 requests, prompt
@@ -68,9 +78,9 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               held to the kernels' loss and gradient norm (1e-4 of
               each); one more step is profiled (device busy and idle
               share); in the step after it, CUDA events around each call
-              of the plain backwards (attention, RG-LRU's reverse scan)
-              give their share of that step; the step's bf16 FLOP bound is
-              printed.  Then each
+              of the attention plain backward and the RG-LRU backward
+              kernel give their share of that step; the step's bf16 FLOP
+              bound is printed.  Then each
               reduced config, 2 steps in fp32 on the card against the CPU
               from the same start, and 4 steps straight against 2, a
               checkpoint, a resume and 2 more;
@@ -137,7 +147,9 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               989 TFLOP/s bf16 or bytes over 3.35 TB/s, the larger -- which
               must not exceed that prefill's measured device busy time.
 
-Then one JSON line with every kernel's numbers and each phase's seconds,
+Then one JSON line with every kernel's numbers and each phase's seconds
+(a kernel's ``launches`` are those of its main path: the serve phase's,
+RG-LRU's backward kernel's the lm-train phase's),
 the card's name and power limit as nvidia-smi prints them, and, last, the
 device line.  The script
 needs ``src/repro_torch`` beside it and a CUDA device, and imports nothing of
@@ -314,6 +326,138 @@ def launch_floor_ms() -> float:
 
 
 # ---------------------------------------------------------------------------
+# launch counters
+# ---------------------------------------------------------------------------
+def kernel_counters() -> dict:
+    """Each kernel's launch counter, by kernel name: the wrapper module and
+    the attribute its CUDA branch adds one to at every launch (RG-LRU's
+    wrapper counts its forward and its backward kernel apart)."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rmsnorm import ops as rn_ops
+
+    return {"rmsnorm": (rn_ops, "launches"),
+            "flash_attention": (fa_ops, "launches"),
+            "flash_decode": (fd_ops, "launches"),
+            "rglru": (rg_ops, "launches"),
+            "rglru_bwd": (rg_ops, "bwd_launches")}
+
+
+def zero_counts() -> None:
+    for mod, attr in kernel_counters().values():
+        setattr(mod, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in kernel_counters().items()}
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU's cases and timings (also timed for another source tree by
+# tools/rglru_bench.py)
+# ---------------------------------------------------------------------------
+D_RNN = 2560
+RGLRU_REGIMES = ("softplus", "a_near_1")
+
+
+def rglru_cases() -> list:
+    """(case, (B, S, D), with h0): RecurrentGemma-2B's serve prefill from a
+    zero state, its decode step carrying h0 and the lm-train phase's
+    microbatch; then at B=1 a ragged S carrying h0 (the split kernels' h0
+    row and dh0), a long S (rounds of a cluster's tiles) and an odd width
+    carrying h0 (4-byte copies, a ragged channel tile)."""
+    return [("prefill (8,128,2560)", (BATCH, PROMPT_LEN, D_RNN), False),
+            ("decode (8,1,2560) h0", (BATCH, 1, D_RNN), True),
+            ("train (1,1024,2560)", (1, LM_SEQ, D_RNN), False),
+            ("ragged (1,1000,2560) h0", (1, 1000, D_RNN), True),
+            ("long (1,8192,2560)", (1, 8192, D_RNN), False),
+            ("odd width (1,1024,1001) h0", (1, LM_SEQ, 1001), True)]
+
+
+def rglru_inputs(shape, with_h0: bool, regime: str, gen) -> tuple:
+    """(x, log_a, h0, dy) fp32 on the card.  "softplus": x ~ N(0, 1),
+    log_a = -softplus(N(0, 1)) (a ~ 0.5), the kernel tests' inputs.
+    "a_near_1": the model's regime, log a uniform in [-1e-3, 0] and x scaled
+    by sqrt(1 - a^2) as ``rglru_apply`` scales it, so h stays of order 1
+    while every carry crosses many sub-chunks.  dy ~ N(0, 1); h0 ~ N(0, 1)
+    or None."""
+    import torch
+    import torch.nn.functional as F
+
+    def randn():
+        return torch.randn(*shape, generator=gen, device=gen.device)
+
+    x = randn()
+    if regime == "a_near_1":
+        la = -1e-3 * torch.rand(*shape, generator=gen, device=gen.device)
+        x = torch.sqrt(1.0 - torch.exp(2.0 * la)) * x
+    else:
+        la = -F.softplus(randn())
+    h0 = (torch.randn(shape[0], shape[2], generator=gen, device=gen.device)
+          if with_h0 else None)
+    return x, la, h0, randn()
+
+
+def rglru_plain_iters(s: int) -> dict:
+    """time_ms arguments for the plain versions, Python loops over S (~3
+    launches a step): fewer calls at long S, so that each timing takes a
+    few seconds at most."""
+    return dict(iters=max(1, min(20, 2048 // s)), reps=5 if s <= 1024 else 3)
+
+
+def rglru_times(x, la, h0, dy, *, plain: bool = True) -> dict:
+    """The forward and backward kernels' median times on these inputs and
+    their bounds (bytes: the forward reads x and log_a and writes h, plus
+    h0; the backward reads dy, log_a and h and writes dx and dlog_a, plus
+    h0 and dh0), and with ``plain`` the plain versions' times."""
+    import torch
+
+    from repro_torch.kernels.rglru import ops as rg_ops
+    from repro_torch.kernels.rglru.ref import rglru_bwd, rglru_ref
+
+    n, s = x.numel(), x.shape[1]
+    hb = 0 if h0 is None else h0.numel() * 4
+    h = rglru_ref(x, la, h0)
+    bwd_op = torch.ops.repro_torch.rglru_scan_bwd
+    t = {}
+    t["ms"] = time_ms(lambda: rg_ops.rglru_scan(x, la, h0))
+    t["bound_ms"], t["bound_by"] = bound_ms(3 * n * 4 + hb, 3 * n,
+                                            FP32_FLOPS)
+    t["bwd_ms"] = time_ms(lambda: bwd_op(dy, la, h, h0))
+    t["bwd_bound_ms"], t["bwd_bound_by"] = bound_ms(5 * n * 4 + 2 * hb,
+                                                    5 * n, FP32_FLOPS)
+    if plain:
+        kw = rglru_plain_iters(s)
+        t["plain_ms"] = time_ms(lambda: rglru_ref(x, la, h0), **kw)
+        t["bwd_plain_ms"] = time_ms(lambda: rglru_bwd(dy, la, h, h0), **kw)
+    return t
+
+
+def rglru_launch(plan, shape, backward: bool) -> str:
+    """A launch plan as phase 2 logs it, the grid as ``rglru_plan`` defines
+    it and the shared memory as ``csrc/rglru.cu`` sets it
+    (``repro_rglru_smem``)."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    b, s, d = shape
+    if plan.variant == "walk":
+        return (f"walk, grid ({-(-d // 256)}, {b}) x 256 threads (one a "
+                "channel), no shared memory")
+    smem = (ctypes.c_int * 2)()
+    build.check("rglru", build.library("rglru").repro_rglru_smem(
+        s, plan.cluster, plan.warps, plan.steps, ctypes.addressof(smem)))
+    span = plan.cluster * plan.warps * plan.steps
+    return (f"split, cluster {plan.cluster} x {plan.warps} warps x "
+            f"{plan.steps} rows, grid ({plan.cluster}, {-(-d // 32)}, {b}) "
+            f"x {32 * plan.warps} threads, {-(-s // span)} round(s), "
+            f"{smem[int(backward)]} B shared memory")
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_kernels() -> dict:
@@ -324,8 +468,11 @@ def check_kernels() -> dict:
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import decode_ref
+    from repro_torch.kernels import build
     from repro_torch.kernels.rglru import ops as rg_ops
-    from repro_torch.kernels.rglru.ref import rglru_ref
+    from repro_torch.kernels.rglru.ref import (rglru_bwd,
+                                               rglru_bwd_split_ref,
+                                               rglru_ref, rglru_split_ref)
     from repro_torch.kernels.rmsnorm import ops as rn_ops
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
 
@@ -546,50 +693,126 @@ def check_kernels() -> dict:
             main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                         bound_by=by)
     results["flash_decode"] = dict(main, max_abs_err=max(errs))
-    check_kernel_attrs(launched)
 
-    # -- RG-LRU: RecurrentGemma-2B's prefill (8,128,2560) from a zero state,
-    # its decode step (8,1,2560) carrying h0 and the lm-train phase's
-    # microbatch (1,1024,2560), fp32.  No single PyTorch call computes a
-    # linear recurrence, so there is no library time
-    tol = 1e-4   # the same fp32 recurrence; only FMA contraction may differ
-    errs, main, train_shapes = [], None, {}
-    d_rnn = 2560
-    for case, nb, s_len, with_h0 in (
-            ("prefill (8,128,2560)", BATCH, PROMPT_LEN, False),
-            ("decode (8,1,2560) h0", BATCH, 1, True),
-            ("train (1,1024,2560)", 1, LM_SEQ, False)):
-        x = torch.randn(nb, s_len, d_rnn, generator=gen, device=dev)
-        la = -F.softplus(torch.randn(nb, s_len, d_rnn, generator=gen,
-                                     device=dev))
-        h0 = (torch.randn(nb, d_rnn, generator=gen, device=dev)
-              if with_h0 else None)
-        out = rg_ops.rglru_scan(x, la, h0)
-        torch.cuda.synchronize()
-        err = (out - rglru_ref(x, la, h0)).abs().max().item()
-        ms = time_ms(lambda: rg_ops.rglru_scan(x, la, h0))
-        plain = time_ms(lambda: rglru_ref(x, la, h0))
-        nbytes = 3 * x.numel() * 4 + (h0.numel() * 4 if with_h0 else 0)
-        b, by = bound_ms(nbytes, 3 * x.numel(), FP32_FLOPS)
-        record("rglru", case, err, tol, ms, plain, None, b, by)
-        if nb == 1:
-            train_shapes[case] = dict(ms=ms, plain_ms=plain, library_ms=None,
-                                      bound_ms=b, max_abs_err=err)
-        errs.append(err)
-        if main is None:
-            main = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b,
-                        bound_by=by)
-    results["rglru"] = dict(main, max_abs_err=max(errs),
+    # -- RG-LRU, forward and backward kernels: every case of rglru_cases()
+    # in both input regimes, each against the plain versions on the same
+    # inputs (the backward at the plain forward's h).  No single PyTorch
+    # call computes a linear recurrence, so there is no library time
+    fwd_tol = 1e-4   # the same fp32 recurrence; only composed carries differ
+    bwd_op = torch.ops.repro_torch.rglru_scan_bwd
+    fwd_errs, bwd_errs, main, main_bwd = [], [], None, None
+    train_shapes, bwd_train_shapes = {}, {}
+    for case, shape, with_h0 in rglru_cases():
+        plan = rg_ops.rglru_plan(*shape, build.sm_count(0))
+        bplan = rg_ops.rglru_plan(*shape, build.sm_count(0), backward=True)
+        log(f"[kernels] rglru {case}: forward "
+            f"{rglru_launch(plan, shape, False)}; backward "
+            f"{rglru_launch(bplan, shape, True)}")
+        for regime in RGLRU_REGIMES:
+            x, la, h0, dy = rglru_inputs(shape, with_h0, regime, gen)
+            label = f"{case} {regime}"
+            out = rg_ops.rglru_scan(x, la, h0)
+            torch.cuda.synchronize()
+            h = rglru_ref(x, la, h0)
+            err = (out - h).abs().max().item()
+            got = bwd_op(dy, la, h, h0)
+            torch.cuda.synchronize()
+            want = rglru_bwd(dy, la, h, h0)
+            # the kernels against their own arithmetic (ref.py's split
+            # mirrors: the same plan's sub-chunks and carries in plain
+            # PyTorch on the card), bit for bit
+            mirror = rglru_bwd_split_ref(dy, la, h, h0, bplan)
+            same = (torch.equal(out, rglru_split_ref(x, la, h0, plan)),
+                    all(torch.equal(g, m) for g, m in zip(got, mirror)
+                        if m is not None))
+            log(f"[kernels] rglru {label}: forward / backward kernel equal "
+                f"to the split mirror bit for bit: {same[0]} / {same[1]}")
+            if not all(same):
+                fail(f"rglru {label}: a kernel differs from its split "
+                     f"mirror (forward, backward equal: {same})")
+            # fp32 reverse scan: inside a sub-chunk the kernel's dx and
+            # dlog_a are the plain version's bit for bit from the same
+            # carry; only the composed carries round differently, a few
+            # ulps at each of up to 512 sub-chunk boundaries (S=8192).  On
+            # an H100 80GB HBM3 the errors read at most 2.1e-6 to 2.7e-6 of
+            # max(1, max|ref|) at S=8192 with a near 1, where the scan sums
+            # dy over ~1000 steps (|g| up to ~300): 1e-5 of it per output
+            berr = babs = 0.0
+            for what, g, w in zip(("dx", "dlog_a", "dh0"), got, want):
+                if w is None:
+                    continue
+                scale = max(1.0, w.abs().max().item())
+                e = (g - w).abs().max().item()
+                ok = e <= 1e-5 * scale
+                log(f"[kernels] rglru_bwd {label}: {what} max_abs_err "
+                    f"{e:.3e} (tol {1e-5 * scale:.3e} = 1e-5 x max(1, "
+                    f"max|ref| {scale:.3g})) {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"rglru_bwd {label} {what}: max abs err {e} > "
+                         f"{1e-5 * scale}")
+                berr, babs = max(berr, e / scale), max(babs, e)
+            t = rglru_times(x, la, h0, dy)
+            record("rglru", label, err, fwd_tol, t["ms"], t["plain_ms"],
+                   None, t["bound_ms"], t["bound_by"])
+            log(f"[kernels] rglru_bwd {label}: kernel {t['bwd_ms']:.4f} ms | "
+                f"bound {t['bwd_bound_ms']:.4g} ms ({t['bwd_bound_by']}) | "
+                f"plain {t['bwd_plain_ms']:.4f} ms | library n/a")
+            fwd_errs.append(err)
+            bwd_errs.append((babs, berr))
+            row = dict(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=None,
+                       bound_ms=t["bound_ms"], max_abs_err=err)
+            brow = dict(ms=t["bwd_ms"], plain_ms=t["bwd_plain_ms"],
+                        library_ms=None, bound_ms=t["bwd_bound_ms"],
+                        max_abs_err=babs, max_rel_err=berr)
+            if shape[0] == 1:
+                train_shapes[label] = row
+                bwd_train_shapes[label] = brow
+            if main is None:
+                main = dict(row, bound_by=t["bound_by"])
+                main_bwd = dict(ms=t["bwd_ms"], plain_ms=t["bwd_plain_ms"],
+                                library_ms=None, bound_ms=t["bwd_bound_ms"],
+                                bound_by=t["bwd_bound_by"])
+            del x, la, h0, dy, out, h, got, want, mirror
+    # the cotangent autograd hands the backward: not the caller's layout
+    # (the model's ``h, h[:, -1]`` sums two, one expanded); the wrapper makes
+    # it contiguous
+    x, la, _, _ = rglru_inputs(rglru_cases()[0][1], False, "softplus", gen)
+    h = rglru_ref(x, la, None)
+    b_, s_, d_ = x.shape
+    for what, dy in (
+            ("transposed", torch.randn(b_, d_, s_, generator=gen,
+                                       device=dev).transpose(1, 2)),
+            ("expanded", torch.randn(b_, 1, d_, generator=gen,
+                                     device=dev).expand(b_, s_, d_))):
+        got = bwd_op(dy, la, h, None)
+        want = rglru_bwd(dy, la, h, None)
+        errs = [((g - w).abs().max().item(), max(1.0, w.abs().max().item()))
+                for g, w in zip(got[:2], want[:2])]
+        rel = max(e / m for e, m in errs)
+        log(f"[kernels] rglru_bwd prefill, {what} dy: max_rel_err "
+            f"{rel:.3e} (tol 1e-05 of max(1, max|ref|)) "
+            f"{'ok' if rel <= 1e-5 else 'FAIL'}")
+        if rel > 1e-5:
+            fail(f"rglru_bwd with a {what} dy differs: {rel}")
+        bwd_errs.append((max(e for e, _ in errs), rel))
+    results["rglru"] = dict(main, max_abs_err=max(fwd_errs),
                             train_shapes=train_shapes)
+    results["rglru_bwd"] = dict(
+        main_bwd, max_abs_err=max(e for e, _ in bwd_errs),
+        max_rel_err=max(r for _, r in bwd_errs),
+        train_shapes=bwd_train_shapes)
+    check_kernel_attrs(launched)
     return results
 
 
 def check_kernel_grads() -> dict:
-    """Phase 2's gradient check: each op's backward (its autograd formula
-    over the plain version) against autograd through the plain version
-    itself, both on the card, at the serve paths' shapes and the forward's
-    tolerance.  The op's forward must launch its kernel once, its backward
-    none.  Returns each kernel's max abs gradient error."""
+    """Phase 2's gradient check: each op's backward against autograd
+    through the plain version itself, both on the card, at the serve
+    paths' shapes and the forward's tolerance.  Each op's forward must
+    launch its kernel once; RG-LRU's backward must launch its backward
+    kernel once, the others' backwards (plain formulas) none.  Returns each
+    kernel's max abs gradient error (RG-LRU's under both of its kernels'
+    names)."""
     import torch
     import torch.nn.functional as F
 
@@ -648,12 +871,16 @@ def check_kernel_grads() -> dict:
     for name, case, mod, op, plain, inputs, tol in cases:
         dy = torch.randn(op(*inputs).shape, generator=gen,
                          device=dev).to(inputs[0].dtype)
-        before = mod.launches
+        before = (mod.launches, getattr(mod, "bwd_launches", 0))
         got = grads(op, inputs, dy)
         torch.cuda.synchronize()
-        if mod.launches != before + 1:
-            fail(f"{name} {case}: forward + backward launched the kernel "
-                 f"{mod.launches - before} times, not once")
+        n = (mod.launches - before[0],
+             getattr(mod, "bwd_launches", 0) - before[1])
+        want_n = (1, 1 if name == "rglru" else 0)
+        if n != want_n:
+            fail(f"{name} {case}: the forward launched its kernel {n[0]} "
+                 f"times and the backward its kernel {n[1]} times, not "
+                 f"{want_n[0]} and {want_n[1]}")
         want = grads(plain, inputs, dy)
         if tol is None:
             tol = torch.finfo(bf16).eps * max(w.abs().max().item()
@@ -661,12 +888,14 @@ def check_kernel_grads() -> dict:
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         log(f"[grad] {name} {case}: max_abs_err {err:.3e} over "
-            f"{len(got)} input gradients (tol {tol:g}) "
+            f"{len(got)} input gradients (tol {tol:g}; backward: "
+            f"{'its kernel' if want_n[1] else 'plain formula'}) "
             f"{'ok' if finite and err <= tol else 'FAIL'}")
         if not (finite and err <= tol):
             fail(f"{name} {case}: gradient differs from the plain "
                  f"version's: {err} > {tol}")
         errs[name] = max(errs.get(name, 0.0), err)
+    errs["rglru_bwd"] = errs["rglru"]
     # the backwards ran on autograd's device thread, whose cuBLAS handle
     # keeps a workspace of its own (32 MiB on Hopper) for the life of the
     # process; free it, so that the serve phase's peak memory is what a
@@ -679,10 +908,11 @@ def check_kernel_grads() -> dict:
 
 def check_kernel_attrs(launched: dict) -> None:
     """Registers and local memory (spills) a thread of every kernel instance
-    the kernel phase launched for RMSNorm and attention, as the CUDA
-    runtime reports them: RMSNorm by (dtype, width, plan), flash attention
-    by (dtype, head dim), flash decode's split kernel by (q dtype, cache
-    dtype) and its combine by q dtype.  Any local memory fails the run."""
+    the kernel phase launched, as the CUDA runtime reports them: RMSNorm by
+    (dtype, width, plan), flash attention by (dtype, head dim), flash
+    decode's split kernel by (q dtype, cache dtype) and its combine by q
+    dtype, RG-LRU's three kernels (forward walk and split, backward).  Any
+    local memory fails the run."""
     import ctypes
 
     from repro_torch.kernels import build
@@ -710,6 +940,12 @@ def check_kernel_attrs(launched: dict) -> None:
         rows.append((f"flash_decode split {name_of(qdt)}/{name_of(kvdt)}",
                      out[0], out[1]))
         rows.append((f"flash_decode combine {name_of(qdt)}", out[2], out[3]))
+    rg = (ctypes.c_int * 6)()
+    build.check("rglru", build.library("rglru").repro_rglru_attrs(
+        ctypes.addressof(rg)))
+    for i, name in enumerate(("forward walk", "forward split",
+                              "backward split")):
+        rows.append((f"rglru {name}", rg[2 * i], rg[2 * i + 1]))
     for name, regs, local in dict.fromkeys(rows):
         log(f"[kernels] {name}: {regs} registers, {local} B local memory "
             "a thread")
@@ -723,13 +959,14 @@ def expected_launches(cfg, steps: int) -> dict:
     more per attention layer with qk-norm, and the final norm; per prefill
     one flash attention an attention layer, per decode step one flash
     decode an attention layer; per prefill and per decode step one RG-LRU
-    scan a recurrent layer (``cfg.block_kind`` names each layer's kind)."""
+    scan a recurrent layer (``cfg.block_kind`` names each layer's kind); no
+    backward."""
     n = cfg.n_layers
     n_attn = sum(cfg.block_kind(i) == "attn" for i in range(n))
     norms = 2 * n + 1 + (2 * n_attn if cfg.qk_norm else 0)
     return {"rmsnorm": (1 + steps) * norms, "flash_attention": n_attn,
             "flash_decode": steps * n_attn,
-            "rglru": (1 + steps) * (n - n_attn)}
+            "rglru": (1 + steps) * (n - n_attn), "rglru_bwd": 0}
 
 
 def _clone(tree):
@@ -750,7 +987,6 @@ def run_serve(arch: str) -> tuple[dict, dict]:
 
     import torch
 
-    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.flash_decode.ref import decode_ref
     from repro_torch.kernels.rglru import ops as rg_ops
@@ -772,14 +1008,11 @@ def run_serve(arch: str) -> tuple[dict, dict]:
         f"{res['max_memory_bytes'] / 2**30:.2f} GiB")
 
     model, params, shd = res["model"], res["params"], Sharder()
-    mods = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
-            "flash_decode": fd_ops, "rglru": rg_ops}
-    for m in mods.values():
-        m.launches = 0
+    zero_counts()
     toks = generate(model, params, res["prompts"], shd, steps=NEW_TOKENS,
                     max_len=PROMPT_LEN + NEW_TOKENS)
     torch.cuda.synchronize()
-    counts = {name: m.launches for name, m in mods.items()}
+    counts = read_counts()
     steps = NEW_TOKENS - 1
     expect = expected_launches(cfg, steps)
     log(f"[serve] {cfg.name} kernel launches of one prefill + {steps} decode "
@@ -1295,12 +1528,14 @@ def expected_train_launches(cfg, tcfg) -> dict:
     """Kernel launches of one train step of ``cfg`` under ``tcfg``: per
     microbatch, then times the microbatches.  A layer checkpointed by the
     remat policy runs its forward again in the backward, launching its
-    kernels again (the plain backwards launch none): the transformer's
-    layers unless ``remat == "none"``, GriffinLM's superblocks always (the
-    reference's ``dots``), never its tail layers or the final norm.  Two
-    RMSNorms a layer (norm1, norm2), two more an attention layer with
-    qk-norm, one flash attention an attention layer, one RG-LRU scan a
-    recurrent layer, and the final norm."""
+    kernels again: the transformer's layers unless ``remat == "none"``,
+    GriffinLM's superblocks always (the reference's ``dots``), never its
+    tail layers or the final norm.  Two RMSNorms a layer (norm1, norm2),
+    two more an attention layer with qk-norm, one flash attention an
+    attention layer, one RG-LRU scan a recurrent layer, and the final
+    norm.  Of the backwards only RG-LRU's is a kernel: one launch a
+    recurrent layer (the recomputed forward's; the first forward of a
+    checkpointed layer keeps no graph)."""
     a = max(1, tcfg.microbatches)
     qk = 2 if cfg.qk_norm else 0
     if cfg.family == "hybrid":
@@ -1308,11 +1543,12 @@ def expected_train_launches(cfg, tcfg) -> dict:
         nt = cfg.n_layers - 3 * ns
         norms = 2 * ns * (6 + qk) + 2 * nt + 1
         counts = {"rmsnorm": norms, "flash_attention": 2 * ns,
-                  "rglru": 2 * 2 * ns + nt}
+                  "rglru": 2 * 2 * ns + nt, "rglru_bwd": 2 * ns + nt}
     else:
         r = 1 if tcfg.remat == "none" else 2
         counts = {"rmsnorm": r * cfg.n_layers * (2 + qk) + 1,
-                  "flash_attention": r * cfg.n_layers, "rglru": 0}
+                  "flash_attention": r * cfg.n_layers, "rglru": 0,
+                  "rglru_bwd": 0}
     return dict({k: a * v for k, v in counts.items()}, flash_decode=0)
 
 
@@ -1343,13 +1579,14 @@ def lm_train_flops(model, tcfg) -> float:
     return oc.cost()["flops"] * max(1, tcfg.microbatches)
 
 
-def timed_plain_backwards(fn) -> tuple:
+def timed_backwards(fn) -> tuple:
     """One call of ``fn`` (a train step) with a CUDA event pair around
-    every call of the plain attention and RG-LRU backwards
-    (``kernels/*/ref.py``) inside it.  Returns the step's wall ms (host
-    clock, ending in a synchronize) and, by backward, its calls and the
-    device ms between its events, summed: the time each backward held the
-    stream in this step, the gaps the host left in it included."""
+    every call of the plain attention backward (``attention_bwd``) and of
+    the RG-LRU backward kernel's wrapper (``_launch_bwd``) inside it.
+    Returns the step's wall ms (host clock, ending in a synchronize) and,
+    by backward, its calls and the device ms between its events, summed:
+    the time each backward held the stream in this step, the gaps the host
+    left in it included."""
     from unittest import mock
 
     import torch
@@ -1357,7 +1594,7 @@ def timed_plain_backwards(fn) -> tuple:
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.rglru import ops as rg_ops
 
-    spans = {"attention": [], "rglru": []}
+    spans = {BWD_NAMES["attention"]: [], BWD_NAMES["rglru"]: []}
 
     def timed(name, bwd):
         def call(*args, **kwargs):
@@ -1372,9 +1609,10 @@ def timed_plain_backwards(fn) -> tuple:
 
     torch.cuda.synchronize()
     with mock.patch.object(fa_ops, "attention_bwd",
-                           timed("attention", fa_ops.attention_bwd)), \
-            mock.patch.object(rg_ops, "rglru_bwd",
-                              timed("rglru", rg_ops.rglru_bwd)):
+                           timed(BWD_NAMES["attention"],
+                                 fa_ops.attention_bwd)), \
+            mock.patch.object(rg_ops, "_launch_bwd",
+                              timed(BWD_NAMES["rglru"], rg_ops._launch_bwd)):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1382,6 +1620,11 @@ def timed_plain_backwards(fn) -> tuple:
     return wall_ms, {name: (len(pairs), sum(s.elapsed_time(e)
                                             for s, e in pairs))
                      for name, pairs in spans.items()}
+
+
+# what each backward timed inside a step is
+BWD_NAMES = {"attention": "attention plain backward",
+             "rglru": "rglru backward kernel"}
 
 
 def run_lm_train(arch: str) -> dict:
@@ -1392,9 +1635,9 @@ def run_lm_train(arch: str) -> dict:
     and falling.  Then, from the same start (seed 0 on the card), the first
     step with each kernel launch replaced by its plain version, held
     against the kernels' first step;
-    that state's next step under torch.profiler; the plain backwards'
-    share of the step after it, timed inside it; the step's bf16 FLOP
-    bound.  Returns the
+    that state's next step under torch.profiler; the backwards' share of
+    the step after it (attention's plain formula, RG-LRU's kernel), timed
+    inside it; the step's bf16 FLOP bound.  Returns the
     launch counts and the numbers for the JSON line."""
     from unittest import mock
 
@@ -1404,7 +1647,6 @@ def run_lm_train(arch: str) -> dict:
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rmsnorm import ops as rn_ops
@@ -1418,16 +1660,13 @@ def run_lm_train(arch: str) -> dict:
     cfg = launch_serve.model_config(arch, LM_ARCHS[arch])
     tcfg = configs.train_config(arch)
     ocfg = launch.opt_config(LM_LR, TRAIN_STEPS)
-    mods = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
-            "flash_decode": fd_ops, "rglru": rg_ops}
     secs, t0 = {}, time.perf_counter()
-    for m in mods.values():
-        m.launches = 0
+    zero_counts()
     res = launch.train(cfg, steps=TRAIN_STEPS, global_batch=LM_BATCH,
                        seq_len=LM_SEQ, ocfg=ocfg, tcfg=tcfg, device="cuda",
                        log=log)
     torch.cuda.synchronize()
-    counts = {name: m.launches for name, m in mods.items()}
+    counts = read_counts()
     secs["train"] = time.perf_counter() - t0
     expect = {k: TRAIN_STEPS * v
               for k, v in expected_train_launches(cfg, tcfg).items()}
@@ -1460,7 +1699,8 @@ def run_lm_train(arch: str) -> dict:
     torch.cuda.empty_cache()
 
     # the first step again from the same start, each kernel launch replaced
-    # by its plain version (the ops' backward formulas are the same ones)
+    # by its plain version: RG-LRU's backward kernel by rglru_bwd (the
+    # other ops' backward formulas are the same ones)
     t0 = time.perf_counter()
     state = init_train_state(model, ocfg, 0, device="cuda")
     step = make_train_step(model, ocfg, tcfg, Sharder())
@@ -1471,7 +1711,8 @@ def run_lm_train(arch: str) -> dict:
             mock.patch.object(fa_ops, "_launch", lambda q, k, v, c, w, o:
                               attention_ref(q, k, v, causal=c, window=w,
                                             q_offset=o)), \
-            mock.patch.object(rg_ops, "_launch", rglru_ref):
+            mock.patch.object(rg_ops, "_launch", rglru_ref), \
+            mock.patch.object(rg_ops, "_launch_bwd", rg_ops._plain_bwd):
         _, met = step(state, data.batch_at(0, "cuda"))
     loss, gnorm = float(met["loss"]), float(met["grad_norm"])
     # bf16 compute through every layer: each kernel's fp32 sums may flip a
@@ -1490,7 +1731,7 @@ def run_lm_train(arch: str) -> dict:
         fail(f"{cfg.name}: the first train step differs from the plain "
              "versions'")
 
-    # where one step's time goes; the plain backwards' share; the bound
+    # where one step's time goes; the backwards' share; the bound
     secs["plain step"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     batch = data.batch_at(1, "cuda")
@@ -1499,7 +1740,7 @@ def run_lm_train(arch: str) -> dict:
     secs["profile"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     batch = data.batch_at(2, "cuda")
-    bwd_step_ms, bwd = timed_plain_backwards(lambda: step(state, batch))
+    bwd_step_ms, bwd = timed_backwards(lambda: step(state, batch))
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -1507,19 +1748,19 @@ def run_lm_train(arch: str) -> dict:
     a = max(1, tcfg.microbatches)
     n_attn = a * (cfg.n_layers // 3 if cfg.family == "hybrid"
                   else cfg.n_layers)
-    want = {"attention": n_attn, "rglru": a * cfg.n_layers - n_attn
+    want = {BWD_NAMES["attention"]: n_attn,
+            BWD_NAMES["rglru"]: a * cfg.n_layers - n_attn
             if cfg.family == "hybrid" else 0}
     calls = {k: n for k, (n, _) in bwd.items()}
     if calls != want:
-        fail(f"{cfg.name}: plain backward calls in one step {calls} != "
-             f"{want}")
+        fail(f"{cfg.name}: backward calls in one step {calls} != {want}")
     share = {k: ms / bwd_step_ms for k, (n, ms) in bwd.items() if n}
-    log(f"[lm-train] {cfg.name} plain backwards inside one step of "
+    log(f"[lm-train] {cfg.name} backwards inside one step of "
         f"{bwd_step_ms:.1f} ms (CUDA events around each call): "
-        + "; ".join(f"{k} {n} calls, {ms:.1f} ms ({ms / n:.2f} a call) = "
-                    f"{share[k]:.3f} of the step"
+        + "; ".join(f"{k} {n} calls, {ms:.1f} ms ({ms / n:.3f} a call) = "
+                    f"{share[k]:.4f} of the step"
                     for k, (n, ms) in bwd.items() if n))
-    secs["plain backwards"] = time.perf_counter() - t0
+    secs["backwards"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     flops = lm_train_flops(model, tcfg)
     secs["FLOP count"] = time.perf_counter() - t0
@@ -1529,9 +1770,9 @@ def run_lm_train(arch: str) -> dict:
         f"TFLOP/s = {b_ms / out['median_step_ms']:.3f} of the median step")
     log(f"[lm-train] {cfg.name} seconds: "
         + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()))
-    return dict(out, busy_ms=busy, plain_bwd_step_ms=bwd_step_ms,
-                plain_bwd_ms={k: ms for k, (n, ms) in bwd.items() if n},
-                plain_bwd_share=share, tflop=flops / 1e12, bound_ms=b_ms)
+    return dict(out, busy_ms=busy, bwd_step_ms=bwd_step_ms,
+                bwd_ms={k: ms for k, (n, ms) in bwd.items() if n},
+                bwd_share=share, tflop=flops / 1e12, bound_ms=b_ms)
 
 
 def run_lm_reduced(arch: str) -> None:
@@ -1923,6 +2164,13 @@ def run_cli(captures: dict, traces: dict, prefill: dict) -> None:
         fail(f"sweep calls by cell {calls} != expected {CLI_SWEEP_CALLS}")
 
 
+# the run whose counts a kernel's ``launches`` reads: the serve paths, as
+# since the port's first slice; RG-LRU's backward kernel, which no serve path
+# launches, the lm-train phase
+MAIN_PATH = {"rglru_bwd": "lm-train"}
+
+# (source, what it replaces): RG-LRU's backward kernel replaces no Pallas
+# kernel; the reference differentiates its associative scan with XLA
 KERNEL_META = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -1932,6 +2180,8 @@ KERNEL_META = {
                      "src/repro/kernels/flash_decode/kernel.py:28"),
     "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
               "src/repro/kernels/rglru/kernel.py:24"),
+    "rglru_bwd": ("src/repro_torch/kernels/csrc/rglru.cu",
+                  "src/repro/kernels/rglru/ops.py:47"),
 }
 
 
@@ -2005,7 +2255,10 @@ def main() -> None:
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
          "replaces": KERNEL_META[name][1],
-         "launches": sum(c[name] for c in by_arch.values()),
+         "main_path": MAIN_PATH.get(name, "serve"),
+         "launches": (sum(r["counts"][name] for r in lm.values())
+                      if MAIN_PATH.get(name) == "lm-train" else
+                      sum(c[name] for c in by_arch.values())),
          "launches_by_arch": {a: c[name] for a, c in by_arch.items()},
          "train_launches_by_arch": {a: r["counts"][name]
                                     for a, r in lm.items()},
@@ -2013,12 +2266,13 @@ def main() -> None:
          **{k: kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                           "bound_ms", "bound_by",
                                           "library_ms")},
+         **{k: kernels[name][k] for k in ("max_rel_err",)
+            if k in kernels[name]},
          "grad_max_abs_err": grad_errs[name]}
         for name in KERNEL_META],
         "lm_train": {a: {k: r[k] for k in (
             "median_step_ms", "tokens_per_s", "max_memory_gib", "busy_ms",
-            "plain_bwd_step_ms", "plain_bwd_ms", "plain_bwd_share",
-            "tflop", "bound_ms")}
+            "bwd_step_ms", "bwd_ms", "bwd_share", "tflop", "bound_ms")}
             for a, r in lm.items()},
         "phase_seconds": {k: round(v, 3) for k, v in seconds.items()}}
     log(json.dumps(line))

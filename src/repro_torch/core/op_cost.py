@@ -91,9 +91,11 @@ def flash_decode_flop(q_shape, k_shape, v_shape, len_shape=None, window=0,
 
 
 @register_flop_formula([torch.ops.repro_torch.rmsnorm,
-                        torch.ops.repro_torch.rglru_scan])
+                        torch.ops.repro_torch.rglru_scan,
+                        torch.ops.repro_torch.rglru_scan_bwd])
 def no_dot_flop(*args, out_shape=None, **kwargs) -> int:
-    """RMSNorm and the RG-LRU scan hold no dot: 0, as in the HLO count."""
+    """RMSNorm and the RG-LRU scan, forward and backward, hold no dot: 0,
+    as in the HLO count."""
     return 0
 
 

@@ -48,7 +48,10 @@ SIGNATURES = {
         "repro_flash_decode_attrs": [_I, _I, _P],
     },
     "rglru": {
-        "repro_rglru": [_P] * 4 + [_I] * 3 + [_P],
+        "repro_rglru": [_P] * 4 + [_I] * 7 + [_P],
+        "repro_rglru_bwd": [_P] * 7 + [_I] * 6 + [_P],
+        "repro_rglru_smem": [_I] * 4 + [_P],
+        "repro_rglru_attrs": [_P],
     },
 }
 

@@ -2,8 +2,9 @@
 ``jax.vjp`` / ``jax.grad`` of the reference on CPU, in fp32.
 
 Each op's forward on a CPU tensor is its plain version; its backward is the
-port's autograd formula (``kernels/*/ref.py``: the reverse scan for RG-LRU,
-autograd through the plain version for the others).  The reference
+port's autograd formula (for RG-LRU the backward op
+``repro_torch::rglru_scan_bwd``, whose CPU branch is the reverse scan
+``ref.rglru_bwd``; for the others autograd through the plain version).  The reference
 differentiates its XLA paths (``repro.kernels.*.ops`` off the TPU): chunked
 online-softmax attention, the associative scan, ``jnp`` RMSNorm.  Inputs and
 output cotangents are made with numpy from a seed.
@@ -117,7 +118,7 @@ def test_flash_decode_grad(cache_len, window):
 
 
 @pytest.mark.parametrize("with_h0", [False, True])
-@pytest.mark.parametrize("s", [1, 7, 33])
+@pytest.mark.parametrize("s", [1, 7, 33, 130])
 def test_rglru_grad(s, with_h0):
     b, d = 2, 24
     x, la, h0, dy = _arrays(3, (b, s, d), (b, s, d), (b, d), (b, s, d))
@@ -126,6 +127,43 @@ def test_rglru_grad(s, with_h0):
     got = _port_grads(lambda *t: rg_ops.rglru_scan(*t), arrays, dy)
     want = _jax_grads(lambda *t: jax_rglru(*t), arrays, dy)
     _assert_close(got, want, OP_TOL)
+
+
+def _model_scan(x, la, h0=None):
+    """The reference model's associative scan, ``h0`` folded into x_0 as
+    the reference's decode folds its state."""
+    from repro.models.rglru import rglru_scan as jax_model_scan
+    if h0 is not None:
+        x = x.at[:, 0].add(jnp.exp(la[:, 0]) * h0)
+    return jax_model_scan(x, la)
+
+
+@pytest.mark.parametrize("regime", ["softplus", "a_near_1"])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("s", [1, 7, 33, 130])
+def test_rglru_grad_against_both_reference_scans(s, with_h0, regime):
+    """The backward op (its CPU branch) against ``jax.vjp`` of the
+    reference's op (XLA's associative scan) and of its model's scan.  In
+    the model's regime a = sigmoid(lam)^8 is near 1 (log a in [-1e-3, 0]
+    here, x scaled by sqrt(1 - a^2) as ``rglru_apply`` scales it): the
+    reverse scan then sums dy over ~1/(1 - a) steps, so gradients grow to
+    ~40 at S = 130 and OP_TOL is taken of max(1, max|grad|); softplus
+    inputs keep gradients of a few and OP_TOL absolute."""
+    b, d = 2, 24
+    x, la, h0, dy = _arrays(5, (b, s, d), (b, s, d), (b, d), (b, s, d))
+    if regime == "a_near_1":
+        la = (-1e-3 * np.random.default_rng(6).random((b, s, d))
+              ).astype(np.float32)
+        x = (np.sqrt(1.0 - np.exp(2.0 * la)) * x).astype(np.float32)
+    else:
+        la = -np.log1p(np.exp(la))
+    arrays = [x, la] + ([h0] if with_h0 else [])
+    got = _port_grads(lambda *t: rg_ops.rglru_scan(*t), arrays, dy)
+    for fn in (lambda *t: jax_rglru(*t), _model_scan):
+        want = _jax_grads(fn, arrays, dy)
+        scale = (max(1.0, max(float(np.abs(w).max()) for w in want))
+                 if regime == "a_near_1" else 1.0)
+        _assert_close(got, want, OP_TOL * scale)
 
 
 def test_rglru_bwd_is_the_reverse_scan():
@@ -145,10 +183,10 @@ def test_rglru_bwd_is_the_reverse_scan():
 def test_forward_launch_counters_untouched_on_cpu():
     """A CPU backward launches no kernel: every counter stays put."""
     mods = (rn_ops, fa_ops, fd_ops, rg_ops)
-    before = [m.launches for m in mods]
+    before = [m.launches for m in mods] + [rg_ops.bwd_launches]
     test_rmsnorm_grad((2, 4, 16))
     test_rglru_grad(3, True)
-    assert [m.launches for m in mods] == before
+    assert [m.launches for m in mods] + [rg_ops.bwd_launches] == before
 
 
 # ---------------------------------------------------------------------------

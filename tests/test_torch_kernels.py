@@ -249,17 +249,22 @@ class TestWrappers:
             "flash_attention": lambda: fa_ops._launch(q, kv, kv, True, 0, 0),
             "flash_decode": lambda: fd_ops._launch(q[:, 0], kv, kv, cl, 0),
             "rglru": lambda: rg_ops._launch(x[None], x[None], None),
+            "rglru_bwd": lambda: rg_ops._launch_bwd(x[None], x[None],
+                                                    x[None], None),
         }
 
     @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention",
-                                      "flash_decode", "rglru"])
+                                      "flash_decode", "rglru", "rglru_bwd"])
     def test_launch_without_toolkit_raises(self, no_toolkit, name):
-        mod = {"rmsnorm": rn_ops, "flash_attention": fa_ops,
-               "flash_decode": fd_ops, "rglru": rg_ops}[name]
-        before = mod.launches
+        mod, attr = {"rmsnorm": (rn_ops, "launches"),
+                     "flash_attention": (fa_ops, "launches"),
+                     "flash_decode": (fd_ops, "launches"),
+                     "rglru": (rg_ops, "launches"),
+                     "rglru_bwd": (rg_ops, "bwd_launches")}[name]
+        before = getattr(mod, attr)
         with pytest.raises(RuntimeError, match="nvcc not found"):
             self._calls()[name]()
-        assert mod.launches == before
+        assert getattr(mod, attr) == before
 
     def test_library_path_follows_every_header(self, monkeypatch, tmp_path):
         """A library is named by its source, every ``csrc/*.cuh`` and the

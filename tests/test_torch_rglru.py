@@ -4,8 +4,13 @@ recurrence (``repro_torch.kernels.rglru``) and ``GriffinLM``.
 The RG-LRU wrapper runs its plain version for CPU tensors; it is held to the
 reference's oracle (``repro.kernels.rglru.ref``) and to the reference's
 Pallas kernel in interpret mode at the reference test's shapes and
-tolerances (1e-4; 1e-5 for the ``h0`` carry).  The CUDA kernel itself runs
-only on the card (``chip_smoke.py``).
+tolerances (1e-4; 1e-5 for the ``h0`` carry).  The CUDA kernels themselves
+run only on the card (``chip_smoke.py``).  Here: the backward op
+(``repro_torch::rglru_scan_bwd``: its CPU branch, fake impl and
+``opcheck``), the kernels' launch plan (``ops.rglru_plan``) at every
+main-path shape and over a grid against the card's limits, and the
+kernels' sequence-split arithmetic (``ref.rglru_split_ref``,
+``ref.rglru_bwd_split_ref``) against the plain versions.
 
 ``GriffinLM`` is held to ``repro.models.rglru.GriffinLM`` in fp32 on the CPU
 in two variants: ``REDUCED`` (6 layers = 2 superblocks, no tail) and an
@@ -26,6 +31,7 @@ overwrites its oldest slots.  Tolerances:
   the softmax weights to bf16, the port's decode kernel keeps them fp32.
 """
 import dataclasses
+import itertools
 import math
 
 import jax
@@ -43,7 +49,9 @@ from repro.parallel import Sharder as RefSharder
 from repro.serve import generate as ref_generate
 from repro_torch import configs
 from repro_torch.kernels.rglru import ops as rg_ops
-from repro_torch.kernels.rglru.ref import rglru_ref
+from repro_torch.kernels.rglru.ops import Plan, rglru_plan
+from repro_torch.kernels.rglru.ref import (rglru_bwd, rglru_bwd_split_ref,
+                                           rglru_ref, rglru_split_ref)
 from repro_torch.models import GriffinLM, build_model
 from repro_torch.models.common import Spec, init_params
 from repro_torch.parallel import Sharder
@@ -126,6 +134,215 @@ class TestRGLRUScan:
     def test_bad_arguments_raise(self, call, exc):
         with pytest.raises(exc):
             call()
+
+
+def _regime_inputs(b, s, d, seed, regime):
+    """(x, log_a, h0, dy) as numpy fp32.  "softplus": the reference test's
+    distributions (``_scan_inputs``).  "a_near_1": the model's regime, log a
+    uniform in [-1e-3, 0] (a in [0.999, 1]) and x scaled by sqrt(1 - a^2)
+    as ``rglru_apply`` scales its input, so h stays of order 1 while a
+    carry crosses many sub-chunks; dy ~ N(0, 1) in both."""
+    x, la, h0 = _scan_inputs(b, s, d, seed)
+    rng = np.random.default_rng(seed + 1)
+    if regime == "a_near_1":
+        la = (-1e-3 * rng.random((b, s, d))).astype(np.float32)
+        x = (np.sqrt(1.0 - np.exp(2.0 * la)) * x).astype(np.float32)
+    dy = rng.standard_normal((b, s, d)).astype(np.float32)
+    return x, la, h0, dy
+
+
+# ---------------------------------------------------------------------------
+# the backward op
+# ---------------------------------------------------------------------------
+BWD_OP = torch.ops.repro_torch.rglru_scan_bwd
+
+
+class TestRGLRUBackwardOp:
+    @pytest.mark.parametrize("with_h0", [True, False])
+    @pytest.mark.parametrize("regime", ["softplus", "a_near_1"])
+    @pytest.mark.parametrize("s", [1, 7, 33, 130])
+    def test_cpu_branch_is_the_plain_backward(self, s, regime, with_h0):
+        x, la, h0, dy = (_t(a) for a in _regime_inputs(2, s, 24, s, regime))
+        h0 = h0 if with_h0 else None
+        h = rglru_ref(x, la, h0)
+        dx, dla, dh0 = BWD_OP(dy, la, h, h0)
+        want = rglru_bwd(dy, la, h, h0)
+        assert torch.equal(dx, want[0]) and torch.equal(dla, want[1])
+        if with_h0:
+            assert torch.equal(dh0, want[2])
+        else:
+            assert dh0.shape == (0,) and want[2] is None
+
+    def test_autograd_takes_the_op(self):
+        """The forward's autograd formula calls the backward op once, with
+        the cotangent of ``h`` and of its last state ``h[:, -1]`` summed, as
+        ``rglru_apply`` returns both; the gradients equal autograd through
+        the plain forward loop."""
+        x, la, h0, dy = (_t(a) for a in _regime_inputs(2, 33, 24, 5,
+                                                         "a_near_1"))
+        w_last = torch.randn(2, 24, generator=torch.Generator().manual_seed(0))
+        calls = []
+
+        class Spy(torch.utils._python_dispatch.TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                calls.append(str(func))
+                return func(*args, **(kwargs or {}))
+
+        def grads(fn):
+            ts = [t.clone().requires_grad_() for t in (x, la, h0)]
+            h = fn(*ts)
+            ((h * dy).sum() + (h[:, -1] * w_last).sum()).backward()
+            return [t.grad for t in ts]
+
+        with Spy():
+            got = grads(rg_ops.rglru_scan)
+        want = grads(rglru_ref)
+        assert calls.count("repro_torch.rglru_scan_bwd.default") == 1
+        # the reverse scan against autograd's chain through the loop: fp32
+        # roundings in another order, on gradients of up to ~20 (a near 1
+        # sums dy over many steps)
+        for g, w in zip(got, want):
+            tol = 1e-6 * max(1.0, w.abs().max().item())
+            assert (g - w).abs().max().item() <= tol
+
+    def test_fake_impl_launches_nothing(self):
+        """Under FakeTensorMode (a capture) both ops give the right shapes
+        and dtypes from their fake impls, forward and backward, and launch
+        no kernel: a fake capture traces one op, not a loop of positions."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        before = (rg_ops.launches, rg_ops.bwd_launches)
+        with FakeTensorMode(allow_non_fake_inputs=False):
+            def mk(*shape):
+                return torch.empty(*shape)
+            dy, la, h, h0 = mk(2, 1024, 64), mk(2, 1024, 64), \
+                mk(2, 1024, 64), mk(2, 64)
+            dx, dla, dh0 = BWD_OP(dy, la, h, h0)
+            assert [tuple(t.shape) for t in (dx, dla, dh0)] == [
+                (2, 1024, 64), (2, 1024, 64), (2, 64)]
+            assert all(t.dtype == torch.float32 for t in (dx, dla, dh0))
+            assert tuple(BWD_OP(dy, la, h, None)[2].shape) == (0,)
+            ts = [mk(2, 1024, 64).requires_grad_(),
+                  mk(2, 1024, 64).requires_grad_(), mk(2, 64).requires_grad_()]
+            rg_ops.rglru_scan(*ts).sum().backward()
+            assert [tuple(t.grad.shape) for t in ts] == [
+                (2, 1024, 64), (2, 1024, 64), (2, 64)]
+        assert (rg_ops.launches, rg_ops.bwd_launches) == before
+
+    @pytest.mark.parametrize("with_h0", [True, False])
+    def test_opcheck(self, with_h0):
+        x, la, h0, dy = (_t(a) for a in _regime_inputs(2, 9, 8, 2,
+                                                         "softplus"))
+        h0 = h0 if with_h0 else None
+        h = rglru_ref(x, la, h0)
+        torch.library.opcheck(BWD_OP, (dy, la, h, h0))
+        grad = [t.clone().requires_grad_() if t is not None else None
+                for t in (x, la, h0)]
+        torch.library.opcheck(torch.ops.repro_torch.rglru_scan, tuple(grad))
+
+
+# ---------------------------------------------------------------------------
+# the kernels' launch plan and their sequence-split arithmetic
+# ---------------------------------------------------------------------------
+H100_SMS = 132
+
+
+def _grid(plan: Plan, b: int, s: int, d: int) -> tuple:
+    """The grid, threads a CTA and rounds of ``plan``, as ``rglru_plan``'s
+    docstring defines them."""
+    if plan.variant == "walk":
+        return (-(-d // 256), b, 1), 256, 1
+    span = plan.cluster * plan.warps * plan.steps
+    return (plan.cluster, -(-d // 32), b), 32 * plan.warps, -(-s // span)
+
+
+class TestRGLRUPlan:
+    @pytest.mark.parametrize("shape,plan,bwd_plan,rounds", [
+        # decode with h0: a forward too short to split, one thread a
+        # channel walks S (a single launch); the backward splits anyway
+        ((8, 1, 2560), Plan("walk", 1, 8, 0), Plan("split", 1, 1, 1), 1),
+        # serve prefill: 640 channel tiles fill the card at a cluster of
+        # 1, so the forward walks; the backward splits in one round
+        ((8, 128, 2560), Plan("walk", 1, 8, 0), Plan("split", 1, 8, 16), 1),
+        # the train microbatch: 80 tiles x a cluster of 8 = 640 CTAs
+        ((1, 1024, 2560), Plan("split", 8, 8, 16), None, 1),
+        ((1, 1000, 2560), Plan("split", 8, 8, 16), None, 1),   # ragged S
+        ((1, 8192, 2560), Plan("split", 8, 8, 16), None, 8),   # 8 rounds
+        # a decode step at B=1: S too short to split forward
+        ((1, 1, 2560), Plan("walk", 1, 8, 0), Plan("split", 1, 1, 1), 1),
+        # a short backward: two sub-chunks in one CTA
+        ((1, 17, 2560), Plan("walk", 1, 8, 0), Plan("split", 1, 2, 9), 1),
+    ])
+    def test_main_path_plans(self, shape, plan, bwd_plan, rounds):
+        got = rglru_plan(*shape, H100_SMS)
+        bwd = rglru_plan(*shape, H100_SMS, backward=True)
+        assert got == plan
+        assert bwd == (bwd_plan or plan)
+        assert bwd.variant == "split"
+        for p in (got, bwd):
+            assert _grid(p, *shape)[2] == rounds
+
+    @pytest.mark.parametrize("sms", [1, 8, 132])
+    def test_plans_within_the_card_limits(self, sms):
+        for b, d, s in itertools.product(
+                (1, 2, 8, 64, 65535), (1, 5, 24, 32, 33, 2560, 4096, 100_000),
+                (1, 2, 15, 16, 17, 31, 33, 100, 127, 128, 129, 1000, 1024,
+                 4097, 8192, 65536)):
+            for backward in (False, True):
+                plan = rglru_plan(b, s, d, sms, backward)
+                (gx, gy, gz), threads, rounds = _grid(plan, b, s, d)
+                assert gy <= 65535 and gz <= 65535
+                assert 32 <= threads <= 256
+                if plan.variant == "walk":
+                    # the forward, where a split would take a cluster of 1
+                    assert not backward
+                    assert s < 32 or b * -(-d // 32) >= 4 * sms
+                    assert gx * threads >= d
+                    continue
+                assert backward or plan.cluster > 1
+                # a split splits S across 1-8 CTAs (a portable cluster),
+                # each keeping 16 rows unless S is too short to share
+                assert plan.cluster in (1, 2, 4, 8) and gx == plan.cluster
+                assert 1 <= plan.warps <= 8 and 1 <= plan.steps <= 16
+                assert plan.cluster == 1 or -(-s // plan.cluster) >= 16
+                # every row is covered and the last round holds one
+                span = plan.cluster * plan.warps * plan.steps
+                assert rounds * span >= s and (rounds - 1) * span < s
+
+    @pytest.mark.parametrize("regime", ["softplus", "a_near_1"])
+    @pytest.mark.parametrize("with_h0", [True, False])
+    @pytest.mark.parametrize("b,s,d,plan", [
+        (2, 1, 24, Plan("split", 1, 1, 1)),
+        (2, 7, 24, Plan("split", 1, 1, 7)),
+        (2, 33, 24, Plan("split", 2, 2, 9)),
+        (2, 130, 40, Plan("split", 2, 5, 13)),
+        (2, 130, 40, Plan("split", 2, 2, 4)),       # 9 rounds
+        (1, 1000, 8, Plan("split", 4, 8, 16)),      # 2 rounds, ragged
+        (2, 17, 24, Plan("split", 1, 2, 9))])
+    def test_split_arithmetic_matches_the_plain_versions(
+            self, b, s, d, plan, with_h0, regime):
+        """The kernels' arithmetic under a plan (clusters, sub-chunks and
+        rounds at small widths) against the plain versions: within 1e-5 of
+        max(1, max|ref|) -- only the composed carries round differently --
+        and bit for bit in the first sub-chunk of each scan, whose carry is
+        the plain version's."""
+        steps = plan.steps
+        x, la, h0, dy = (_t(a) for a in _regime_inputs(b, s, d, s, regime))
+        h0 = h0 if with_h0 else None
+        want = rglru_ref(x, la, h0)
+        got = rglru_split_ref(x, la, h0, plan)
+        tol = 1e-5 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+        assert torch.equal(got[:, :steps], want[:, :steps])
+        gwant = rglru_bwd(dy, la, want, h0)
+        ggot = rglru_bwd_split_ref(dy, la, want, h0, plan)
+        for g, w in zip(ggot, gwant):
+            if w is None:
+                assert g is None
+                continue
+            tol = 1e-5 * max(1.0, w.abs().max().item())
+            assert (g - w).abs().max().item() <= tol
+        assert torch.equal(ggot[0][:, s - steps:], gwant[0][:, s - steps:])
 
 
 def test_rglru_a_init_range():

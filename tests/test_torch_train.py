@@ -354,13 +354,15 @@ def test_lm_data_is_the_reference_bit_for_bit(seed, host, num_hosts):
 # kernel launches of a train step
 # ---------------------------------------------------------------------------
 class _OpCount(TorchDispatchMode):
-    """Calls of the three kernel ops a train step makes (on the CPU they
-    run their plain versions; on the card each call is one launch)."""
+    """Calls of the kernel ops a train step makes, RG-LRU's backward op
+    included (on the CPU they run their plain versions; on the card each
+    call is one launch)."""
 
     OPS = {"rmsnorm": "repro_torch.rmsnorm.default",
            "flash_attention": "repro_torch.flash_attention.default",
            "flash_decode": "repro_torch.flash_decode.default",
-           "rglru": "repro_torch.rglru_scan.default"}
+           "rglru": "repro_torch.rglru_scan.default",
+           "rglru_bwd": "repro_torch.rglru_scan_bwd.default"}
 
     def __init__(self):
         super().__init__()
