@@ -16,7 +16,16 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               call's time; RMSNorm's prefill shapes also cold (inputs
               rotated through more than the L2 cache), and once the launch
               floor (an 8-element add); flash attention also at the
-              lm-train phase's microbatch (one 1024-token sequence).
+              lm-train phase's microbatch (one 1024-token sequence);
+              the transformer-backbone configs' shapes: flash attention
+              and flash decode (the 160-slot serve cache) at MHA 32/32
+              dh 128, MHA 24/24 dh 64, MQA 48/1 dh 128 and 64/8 dh 128,
+              decode also at 32/8 dh 64; flash attention as the
+              context-parallel branch runs it (a causal S=512 problem in 4
+              sequence shards, each at its ``q_offset``, against the
+              unsplit kernel and the plain version); RMSNorm at widths
+              1536, 2048, 6144 and 8192 (prefill and decode rows) and
+              Chameleon-34B's 64-head qk rows.
               RG-LRU's forward and backward kernels at its serve prefill
               and decode shapes, the lm-train microbatch (1,1024,2560), a
               ragged (1,1000,2560) and a long (1,8192,2560), each with the
@@ -34,11 +43,17 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               tolerance; each op's forward must launch its kernel once,
               RG-LRU's backward its backward kernel once, the other
               backwards (plain formulas) none;
-3. serve   -- for each served architecture (Qwen3-8B, then
-              RecurrentGemma-2B), at its published width and depth, random
-              weights from a seed, cast to bf16 once: 8 requests, prompt
-              128, 32 new tokens, timed by the serve entry point.  Then one
-              more ``generate`` of the same requests, with the launch
+3. serve   -- for each served architecture (Qwen3-8B, RecurrentGemma-2B,
+              then the transformer-backbone configs CodeQwen1.5-7B,
+              Granite-3-2B, Granite-20B, Chameleon-34B and MusicGen-medium),
+              at its published width and depth, random weights from a
+              seed, cast to bf16 once: 8 requests, prompt 128, 32 new
+              tokens, timed by the serve entry point; the two configs that
+              read embeddings (Chameleon, MusicGen: stubbed front ends)
+              through ``model.prefill`` and 31 ``decode_step``s on bf16
+              embeddings drawn from a seeded generator on the card, timed
+              on the same host clock.  Then one more ``generate`` of the
+              same requests (or run over the same embeddings), with the launch
               counters zeroed just before and read just after: they must
               equal the counts the architecture's layers imply (every norm
               through the RMSNorm kernel, prefill attention through the
@@ -49,7 +64,9 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               where one prefill's and four decode steps' device time goes,
               with the device's idle share.  Qwen3-8B's prefill is counted
               (FLOPs, bytes) for phase 8.  Each model is freed before the
-              next is built;
+              next is built (the memory resident before each build is
+              printed: Chameleon-34B's 63.88 GiB of weights need the card
+              to itself);
 4. train   -- for each of the paper's applications (ResNet-18, GNMT, the
               DDP microbenchmark's MLP) at the repo's paper configs' sizes,
               through ``repro_torch.launch.paper``: 10 DDP steps in fp32
@@ -84,11 +101,12 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               reduced config, 2 steps in fp32 on the card against the CPU
               from the same start, and 4 steps straight against 2, a
               checkpoint, a resume and 2 more;
-5. monitor -- for each architecture, the two-phase prefill/decode capture at
-              full width on a fake 4x2 mesh, under FakeTensorMode on
-              ``cuda``; its per-phase collective calls must equal a pinned
-              table, and the report is saved, reloaded and compared; and
-              its train step (the TRAIN preset's remat, one microbatch,
+5. monitor -- for each served architecture, the two-phase prefill/decode
+              capture at full width on a fake 4x2 mesh, under
+              FakeTensorMode on ``cuda``; its per-phase collective calls
+              must equal a pinned table, and the report is saved, reloaded
+              and compared; and, for Qwen3-8B and RecurrentGemma-2B, the
+              train step (the TRAIN preset's remat, one microbatch,
               8 x 128 tokens) at full width and depth, its calls and
               payload bytes by kind held to a pinned table.  Then
               each paper application's one-step capture at the same sizes
@@ -124,8 +142,8 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
 8. cli     -- the port's command line, ``python -m repro_torch``, in
               subprocesses on the card (captures on fake ``cuda`` meshes,
               a report cache under ``build/cli``): ``configs`` must list
-              the six sweep configs (the paper apps, serve and the two
-              architectures' train steps); ``sweep`` of every config on
+              the eleven sweep configs (the paper apps, serve and the
+              seven architectures' reduced train steps); ``sweep`` of every config on
               4x2 and 2x2x2 with ring and hierarchical, by phase and
               linted, run
               twice: the cold run captures each (config, mesh) cell once,
@@ -147,9 +165,11 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               989 TFLOP/s bf16 or bytes over 3.35 TB/s, the larger -- which
               must not exceed that prefill's measured device busy time.
 
-Then one JSON line with every kernel's numbers and each phase's seconds
-(a kernel's ``launches`` are those of its main path: the serve phase's,
-RG-LRU's backward kernel's the lm-train phase's),
+Then one JSON line with every kernel's numbers (a kernel's ``launches``
+are those of its main path: the serve phase's, summed over the seven
+served architectures and named by them in ``launches_by_arch``, RG-LRU's
+backward kernel's the lm-train phase's), each served model's times,
+busy ms and idle shares, the lm-train numbers and each phase's seconds,
 the card's name and power limit as nvidia-smi prints them, and, last, the
 device line.  The script
 needs ``src/repro_torch`` beside it and a CUDA device, and imports nothing of
@@ -157,6 +177,7 @@ JAX.
 """
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -175,6 +196,12 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 ARCHS = ("qwen3_8b", "recurrentgemma_2b")
+# the transformer-backbone configs served and captured beside them (the
+# last two read stub embeddings); the train, scale and trace phases keep
+# to ARCHS
+BACKBONE_ARCHS = ("codeqwen15_7b", "granite_3_2b", "granite_20b",
+                  "chameleon_34b", "musicgen_medium")
+SERVE_ARCHS = ARCHS + BACKBONE_ARCHS
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 128, 32
 PAPER_APPS = ("resnet", "gnmt", "paper")
 TRAIN_STEPS = 10
@@ -196,6 +223,15 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@functools.lru_cache(maxsize=None)
+def gpu_name_and_limit() -> str:
+    """The card's name and power limit as ``nvidia-smi`` prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +278,9 @@ def rmsnorm_cases() -> list:
     """(case, shape, dtype, kind, storage offset in elements).  Kind
     "prefill" and "decode": the serve paths' rows in bf16 -- Qwen3-8B's
     model-width rows and the qk-norm rows of its 32 query and 8 kv heads,
-    RecurrentGemma-2B's rows; prefill cases are timed cold too.  Kind
+    RecurrentGemma-2B's rows, the other served configs' widths 1536, 2048,
+    6144 and 8192 and Chameleon-34B's 64 query heads; prefill cases are
+    timed cold too.  Kind
     "other": f16 and fp32 at Qwen's prefill rows; widths the kernels take
     at run time (lanes at 64; block at 384, at 2000 with four rows a CTA,
     at 16384 with four vectors a thread); and inputs only the scalar kernel
@@ -260,6 +298,17 @@ def rmsnorm_cases() -> list:
         ("decode qk(B,1,32,128)", (BATCH, 1, 32, 128), bf16, "decode", 0),
         ("decode qk(B,1,8,128)", (BATCH, 1, 8, 128), bf16, "decode", 0),
         ("decode rows(B,2560)", (BATCH, 2560), bf16, "decode", 0),
+    ] + [
+        # the transformer-backbone configs' model widths (MusicGen-medium,
+        # Granite-3-2B, Granite-20B, Chameleon-34B: the block kernel's
+        # run-time width instances) and Chameleon's 64 query heads' qk rows
+        (f"{k}rows({r},{d})", (n, d), bf16, kind, 0)
+        for d in (1536, 2048, 6144, 8192)
+        for k, r, n, kind in (("", "B*S", rows, "prefill"),
+                              ("decode ", "B", BATCH, "decode"))
+    ] + [
+        ("qk(B,S,64,128)", (BATCH, PROMPT_LEN, 64, 128), bf16, "prefill", 0),
+        ("decode qk(B,1,64,128)", (BATCH, 1, 64, 128), bf16, "decode", 0),
         ("f16 rows(B*S,4096)", (rows, 4096), torch.float16, "other", 0),
         ("fp32 rows(B*S,4096)", (rows, 4096), torch.float32, "other", 0),
         ("width 64 (8,64)", (8, 64), bf16, "other", 0),
@@ -561,7 +610,13 @@ def check_kernels() -> dict:
             ("train qwen B1 S1024", LM_SEQ, LM_SEQ, 32, 8, 128, 0, 0, bf16,
              2e-2),
             ("train rg B1 S1024 window2048", LM_SEQ, LM_SEQ, 10, 1, 256,
-             2048, 0, bf16, 2e-2)):
+             2048, 0, bf16, 2e-2),
+            # the transformer-backbone configs' prefill head layouts:
+            # CodeQwen1.5-7B's MHA, MusicGen-medium's MHA at dh 64,
+            # Granite-20B's MQA, Chameleon-34B's 64/8 (Granite-3-2B's 32/8
+            # at dh 64 is the "dh64" case)
+            *((f"{name} B8 S128", PROMPT_LEN, PROMPT_LEN, h, kvh, dh, 0, 0,
+               bf16, 2e-2) for name, h, kvh, dh in NEW_HEADS)):
         nb = 1 if case.startswith("train") else BATCH
         q = randn(nb, sq, h, dh).to(dtype)
         k = randn(nb, skv, kvh, dh).to(dtype)
@@ -608,6 +663,7 @@ def check_kernels() -> dict:
         if main is None:
             main = dict(ms=ms, plain_ms=plain_ms, library_ms=lib, bound_ms=b,
                         bound_by=by)
+    errs.append(check_cp_shards(record, randn, launched))
     results["flash_attention"] = dict(main, max_abs_err=max(errs),
                                       train_shapes=train_shapes)
 
@@ -626,7 +682,9 @@ def check_kernels() -> dict:
     # split kernel: fp32 q and caches at dh 256 (4-wide vectors, rows of 64
     # vectors: one (head, key) pair a warp), fp32 q over bf16 caches, f16,
     # dh 80 (not dividing the 256 threads: flat-index output owners) and dh
-    # 100 (not a multiple of 8: element-wise loads).
+    # 100 (not a multiple of 8: element-wise loads).  The transformer-backbone
+    # configs' head layouts (``NEW_HEADS`` and Granite-3-2B's 32/8 at dh 64)
+    # decode the 160-slot serve cache from its first step.
     errs, main = [], None
     f16, slots = torch.float16, PROMPT_LEN + NEW_TOKENS
     cases = [(f"cache_len 129 L{slots}", 129, 32, 8, 128, slots, 0, bf16,
@@ -639,6 +697,9 @@ def check_kernels() -> dict:
                   bf16, bf16))
     cases += [(f"ring cache_len {n} L2048", n, 10, 1, 256, 2048, 0, bf16,
                bf16) for n in (129, 2048 + 100)]
+    cases += [(f"{name} cache_len 129 L{slots}", 129, h, kvh, dh, slots, 0,
+               bf16, bf16) for name, h, kvh, dh in
+              NEW_HEADS + (("gqa 32/8 dh64", 32, 8, 64),)]
     cases += [
         (f"fp32 q/cache dh256 G10 L{slots}", 129, 10, 1, 256, slots, 0, f32,
          f32),
@@ -685,8 +746,10 @@ def check_kernels() -> dict:
             2 * BATCH * live * kvh * dh * kc.element_size()
             + 2 * q.numel() * q.element_size(), 4 * BATCH * h * live * dh,
             FP32_FLOPS if qdt == f32 else BF16_FLOPS)
+        blocks = fd_ops.head_blocks(h // kvh, dh)
         log(f"[kernels] flash_decode {case}: nsplit "
-            f"{fd_ops.splits_for(q, kc)} ({BATCH * kvh} (b, kv head) groups)")
+            f"{fd_ops.splits_for(q, kc)} ({BATCH * kvh * blocks} (b, kv "
+            f"head, block of {h // kvh // blocks} heads) groups)")
         record("flash_decode", case, err, tol, ms, plain, lib, b, by)
         errs.append(err)
         if main is None:
@@ -803,6 +866,65 @@ def check_kernels() -> dict:
         train_shapes=bwd_train_shapes)
     check_kernel_attrs(launched)
     return results
+
+
+# the transformer-backbone configs' attention layouts beyond Qwen3-8B's and
+# the dh-64 32/8 case: (name, query heads, kv heads, head dim)
+NEW_HEADS = (("mha 32/32 dh128", 32, 32, 128), ("mha 24/24 dh64", 24, 24, 64),
+             ("mqa 48/1 dh128", 48, 1, 128), ("gqa 64/8 dh128", 64, 8, 128))
+CP_SHARDS, CP_SEQ = 4, 512
+
+
+def check_cp_shards(record, randn, launched) -> float:
+    """The context-parallel branch's kernel calls: a causal S=512 problem
+    (MusicGen-medium's 24 heads of 64, B8) with q split into 4 sequence
+    shards, each launched at its global ``q_offset`` against the whole k/v
+    (as ``attention_block`` runs each shard); the concatenation against
+    the kernel's unsplit output and the plain version.  Timed as the four
+    shard launches; the library time is SDPA's unsplit causal call.
+    Returns the error against the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    h, dh, s, n = 24, 64, CP_SEQ, CP_SEQ // CP_SHARDS
+    q, k, v = randn(BATCH, s, h, dh), randn(BATCH, s, h, dh), \
+        randn(BATCH, s, h, dh)
+    parts = [q[:, r * n:(r + 1) * n].contiguous() for r in range(CP_SHARDS)]
+
+    def shards():
+        return [fa_ops.attend(p, k, v, causal=True, q_offset=r * n)
+                for r, p in enumerate(parts)]
+
+    def plain():
+        return [attention_ref(p, k, v, causal=True, q_offset=r * n)
+                for r, p in enumerate(parts)]
+
+    got = torch.cat(shards(), dim=1).float()
+    whole = fa_ops.attend(q, k, v, causal=True).float()
+    torch.cuda.synchronize()
+    launched["flash_attention"].add((q.dtype, dh))
+    err = (got - attention_ref(q, k, v, causal=True).float()).abs().max()
+    split = (got - whole).abs().max().item()
+    # a row's keys, tiles and sums do not depend on the other rows of its
+    # launch, and each shard starts on a 64-row tile: bit for bit
+    log(f"[kernels] flash_attention cp shards: {CP_SHARDS} x Sq{n} at "
+        f"q_offset 0..{(CP_SHARDS - 1) * n} against the unsplit kernel: "
+        f"max_abs_diff {split:.3e} (bit for bit: {split == 0.0})")
+    if split != 0.0:
+        fail(f"flash_attention cp shards differ from the unsplit kernel by "
+             f"{split}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pairs = BATCH * h * s * (s + 1) // 2
+    b, by = bound_ms(2 * (2 * q.numel() + k.numel() + v.numel()),
+                     4 * pairs * dh)
+    record("flash_attention", f"cp {CP_SHARDS} shards of S{s} mha 24/24 "
+           "dh64", err.item(), 2e-2, time_ms(shards), time_ms(plain),
+           time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True)), b, by)
+    return err.item()
 
 
 def check_kernel_grads() -> dict:
@@ -975,14 +1097,95 @@ def _clone(tree):
     return tree.clone()
 
 
+def prefill_batch(res) -> dict:
+    """The served prompts: token ids, or the stub front end's embeddings
+    for a config that reads them."""
+    if "embeds" in res:
+        return {"embeds": res["embeds"]}
+    return {"tokens": res["prompts"]}
+
+
+def step_batch(res, i: int, logits) -> dict:
+    """Decode step ``i``'s input: the greedy token of ``logits`` (fed
+    back), or the ``i``-th drawn step embedding."""
+    if "embeds" in res:
+        return {"embeds": res["step_embeds"][:, i:i + 1]}
+    last = logits if logits.dim() == 2 else logits[:, -1]
+    return {"tokens": last.float().argmax(-1)[:, None]}
+
+
+def serve_embeddings(cfg) -> dict:
+    """Serve a config that reads embeddings (Chameleon-34B, MusicGen-medium)
+    as ``launch.serve.serve`` serves a token config, which refuses it: bf16
+    weights from seed 0, ``BATCH`` prompts of ``PROMPT_LEN`` embeddings and
+    ``NEW_TOKENS - 1`` step embeddings drawn in bf16 from a seeded
+    generator on the card (standing in for the stubbed modality front end,
+    as the reference's ``input_specs`` do), one untimed run, then the timed
+    prefill and decode steps on the same host clock ending in
+    ``synchronize``.  Returns the keys ``serve`` returns, plus the inputs."""
+    import torch
+
+    from repro_torch.models import build_model
+    from repro_torch.parallel import Sharder
+
+    model = build_model(cfg)
+    params = model.init(0, device="cuda", dtype=torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    res = {"model": model, "params": params, "embeds": torch.randn(
+        BATCH, PROMPT_LEN, cfg.d_model, generator=gen, device="cuda").to(
+            torch.bfloat16), "step_embeds": torch.randn(
+        BATCH, NEW_TOKENS - 1, cfg.d_model, generator=gen,
+        device="cuda").to(torch.bfloat16)}
+    marks: list = []
+
+    def clock():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    embed_generate(res, Sharder())
+    torch.cuda.reset_peak_memory_stats()
+    clock()
+    res["tokens"] = embed_generate(res, Sharder(), clock=clock)
+    return dict(res, prefill_ms=(marks[1] - marks[0]) * 1e3,
+                decode_ms_per_token=(marks[2] - marks[1]) * 1e3
+                / (NEW_TOKENS - 1),
+                tokens_per_s=BATCH * NEW_TOKENS / (marks[2] - marks[0]),
+                max_memory_bytes=torch.cuda.max_memory_allocated())
+
+
+def embed_generate(res, shd, clock=None):
+    """One prefill over the prompt embeddings and ``NEW_TOKENS - 1``
+    decode steps over the step embeddings; ``clock`` is called after the
+    prefill and after the last step.  Returns the (B, NEW_TOKENS) greedy
+    tokens of every step's logits."""
+    import torch
+
+    model, params = res["model"], res["params"]
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, prefill_batch(res), shd,
+                                      max_len=PROMPT_LEN + NEW_TOKENS)
+        toks = [logits.float().argmax(-1)]
+        if clock is not None:
+            clock()
+        for i in range(NEW_TOKENS - 1):
+            logits, cache = model.decode_step(params, cache,
+                                              step_batch(res, i, logits), shd)
+            toks.append(logits[:, -1].float().argmax(-1))
+        out = torch.stack(toks, dim=1)
+        if clock is not None:
+            clock()
+    return out
+
+
 def run_serve(arch: str) -> tuple[dict, dict]:
-    """Phase 3 for one architecture: the port's serve entry point at full
-    width and depth, then the counted main-path run: one more ``generate``
-    over the same prompts, with every launch count zeroed just before it
-    and read just after.  (``launch.serve`` runs an untimed warm-up before
-    its timed run, so counts taken around it would hold the warm-up's
-    launches too.)  Returns the counted run's launch counts and the serve
-    result."""
+    """Phase 3 for one architecture at full width and depth: a token config
+    through the port's serve entry point, an embeddings config through
+    :func:`serve_embeddings`; then the counted main-path run: one more
+    ``generate`` (or :func:`embed_generate`) over the same inputs, with
+    every launch count zeroed just before it and read just after.
+    (Each serve runs an untimed warm-up before its timed run, so counts
+    taken around it would hold the warm-up's launches too.)  Returns the
+    counted run's launch counts and the serve result."""
     from unittest import mock
 
     import torch
@@ -998,19 +1201,27 @@ def run_serve(arch: str) -> tuple[dict, dict]:
     from repro_torch.serve import generate
 
     cfg = launch.model_config(arch)
-    res = launch.serve(cfg, batch=BATCH, prompt_len=PROMPT_LEN,
-                       tokens=NEW_TOKENS, device="cuda")
+    embeds = cfg.input_mode == "embeddings"
+    if embeds:
+        res = serve_embeddings(cfg)
+    else:
+        res = launch.serve(cfg, batch=BATCH, prompt_len=PROMPT_LEN,
+                           tokens=NEW_TOKENS, device="cuda")
     log(f"[serve] {cfg.name} d{cfg.d_model} {cfg.n_layers} layers, {BATCH} "
-        f"requests x prompt {PROMPT_LEN} + {NEW_TOKENS} tokens: prefill "
-        f"{res['prefill_ms']:.2f} ms | decode "
+        f"requests x prompt {PROMPT_LEN} + {NEW_TOKENS} tokens"
+        + (" (bf16 embeddings from a seeded generator)" if embeds else "")
+        + f": prefill {res['prefill_ms']:.2f} ms | decode "
         f"{res['decode_ms_per_token']:.2f} ms/token | "
         f"{res['tokens_per_s']:.1f} tok/s | max memory "
-        f"{res['max_memory_bytes'] / 2**30:.2f} GiB")
+        f"{res['max_memory_bytes'] / 2**30:.2f} GiB | {gpu_name_and_limit()}")
 
     model, params, shd = res["model"], res["params"], Sharder()
     zero_counts()
-    toks = generate(model, params, res["prompts"], shd, steps=NEW_TOKENS,
-                    max_len=PROMPT_LEN + NEW_TOKENS)
+    if embeds:
+        toks = embed_generate(res, shd)
+    else:
+        toks = generate(model, params, res["prompts"], shd,
+                        steps=NEW_TOKENS, max_len=PROMPT_LEN + NEW_TOKENS)
     torch.cuda.synchronize()
     counts = read_counts()
     steps = NEW_TOKENS - 1
@@ -1029,16 +1240,16 @@ def run_serve(arch: str) -> tuple[dict, dict]:
 
     # first decode step: kernels against the plain versions on the card
     with torch.inference_mode():
-        logits0, cache = model.prefill(params, {"tokens": res["prompts"]},
-                                       shd, max_len=PROMPT_LEN + NEW_TOKENS)
-        tok = logits0.float().argmax(-1)[:, None]
+        logits0, cache = model.prefill(params, prefill_batch(res), shd,
+                                       max_len=PROMPT_LEN + NEW_TOKENS)
+        step = step_batch(res, 0, logits0)
         plain_cache = _clone(cache)
-        got, _ = model.decode_step(params, cache, {"tokens": tok}, shd)
+        got, _ = model.decode_step(params, cache, step, shd)
         with mock.patch.object(rn_ops, "rmsnorm", rmsnorm_ref), \
                 mock.patch.object(fd_ops, "decode_attend", decode_ref), \
                 mock.patch.object(rg_ops, "rglru_scan", rglru_ref):
-            want, _ = model.decode_step(params, plain_cache,
-                                        {"tokens": tok}, shd)
+            want, _ = model.decode_step(params, plain_cache, step, shd)
+    del cache, plain_cache
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
         fail("non-finite logits")
@@ -1077,8 +1288,8 @@ def profile_window(name: str, fn):
     """``torch.profiler`` over one call of ``fn``, tracing the device
     alone: the ten device kernels with the most self time, then every
     kernel of the port's, and the device's idle share of the wall time
-    (both under the profiler).  Returns the device's busy ms, or None when
-    the trace has no device time."""
+    (both under the profiler).  Returns the device's busy ms and its idle
+    share, or (None, None) when the trace has no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1093,21 +1304,22 @@ def profile_window(name: str, fn):
     if not rows:
         log(f"[profile] {name}: no device time in the trace "
             "(device busy share not measured)")
-        return None
+        return None, None
+    idle = 1 - busy_ms / wall_ms
     log(f"[profile] {name}: wall {wall_ms:.2f} ms, device busy "
-        f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
+        f"{busy_ms:.2f} ms, idle share {idle:.3f}")
     rows.sort(key=lambda r: -r[1])
     # the top ten, then the port's own kernels below them
     for key, ms, count in rows[:10] + [r for r in rows[10:]
                                        if any(k in r[0] for k in KERNEL_META)]:
         log(f"[profile]   {ms:9.3f} ms {count:6d} calls  {key[:90]}")
-    return busy_ms
+    return busy_ms, idle
 
 
-def profile_serve(res, steps: int = 4):
+def profile_serve(res, steps: int = 4) -> dict:
     """Where the serve step's time goes: :func:`profile_window` over one
-    prefill and over ``steps`` decode steps.  Returns the prefill's device
-    busy ms."""
+    prefill and over ``steps`` decode steps.  Returns each window's device
+    busy ms and idle share."""
     import torch
 
     from repro_torch.parallel import Sharder
@@ -1120,19 +1332,21 @@ def profile_serve(res, steps: int = 4):
 
         def prefill():
             state["logits"], state["cache"] = model.prefill(
-                params, {"tokens": res["prompts"]}, shd, max_len=max_len)
+                params, prefill_batch(res), shd, max_len=max_len)
 
         def decode():
-            tok = state["logits"].float().argmax(-1)[:, None]
-            for _ in range(steps):
-                logits, _ = model.decode_step(params, state["cache"],
-                                              {"tokens": tok}, shd)
-                tok = logits[:, -1].float().argmax(-1)[:, None]
+            logits = state["logits"]
+            for i in range(steps):
+                logits, _ = model.decode_step(
+                    params, state["cache"], step_batch(res, i, logits), shd)
 
         name = model.cfg.name
-        busy_ms = profile_window(f"{name} prefill", prefill)
-        profile_window(f"{name} decode x{steps}", decode)
-    return busy_ms
+        out = {}
+        for what, fn in (("prefill", prefill), (f"decode x{steps}", decode)):
+            busy, idle = profile_window(f"{name} {what}", fn)
+            key = what.split()[0]
+            out[f"{key}_busy_ms"], out[f"{key}_idle"] = busy, idle
+    return out
 
 
 # Each architecture's full-width capture: (phase, kind) -> calls on a fake
@@ -1152,6 +1366,40 @@ MONITOR_CALLS = {
         ("prefill", "reduce-scatter"): 89, ("prefill", "all-reduce"): 71,
         ("decode", "all-to-all"): 140, ("decode", "all-gather"): 103,
         ("decode", "reduce-scatter"): 105, ("decode", "all-reduce"): 71,
+    },
+    # the transformer-backbone configs: MHA (CodeQwen), a vocab the model
+    # axis does not divide (Granite-3-2B: whole logits, no vocab shards),
+    # MQA's replicated kv head (Granite-20B), embeddings inputs (Chameleon,
+    # MusicGen: no token lookup)
+    "codeqwen15_7b": {
+        ("prefill", "all-to-all"): 194, ("prefill", "all-gather"): 97,
+        ("prefill", "reduce-scatter"): 193, ("prefill", "all-reduce"): 65,
+        ("decode", "all-to-all"): 194, ("decode", "all-gather"): 97,
+        ("decode", "reduce-scatter"): 129, ("decode", "all-reduce"): 65,
+    },
+    "granite_3_2b": {
+        ("prefill", "all-to-all"): 162, ("prefill", "all-gather"): 202,
+        ("prefill", "reduce-scatter"): 81, ("prefill", "all-reduce"): 80,
+        ("decode", "all-to-all"): 242, ("decode", "all-gather"): 121,
+        ("decode", "reduce-scatter"): 161, ("decode", "all-reduce"): 80,
+    },
+    "granite_20b": {
+        ("prefill", "all-to-all"): 314, ("prefill", "all-gather"): 365,
+        ("prefill", "reduce-scatter"): 105, ("prefill", "all-reduce"): 105,
+        ("decode", "all-to-all"): 314, ("decode", "all-gather"): 313,
+        ("decode", "reduce-scatter"): 209, ("decode", "all-reduce"): 105,
+    },
+    "chameleon_34b": {
+        ("prefill", "all-to-all"): 289, ("prefill", "all-gather"): 144,
+        ("prefill", "reduce-scatter"): 241, ("prefill", "all-reduce"): 96,
+        ("decode", "all-to-all"): 289, ("decode", "all-gather"): 144,
+        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 96,
+    },
+    "musicgen_medium": {
+        ("prefill", "all-to-all"): 289, ("prefill", "all-gather"): 144,
+        ("prefill", "reduce-scatter"): 289, ("prefill", "all-reduce"): 96,
+        ("decode", "all-to-all"): 289, ("decode", "all-gather"): 144,
+        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 96,
     },
 }
 
@@ -1735,8 +1983,8 @@ def run_lm_train(arch: str) -> dict:
     secs["plain step"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     batch = data.batch_at(1, "cuda")
-    busy = profile_window(f"{cfg.name} train step",
-                          lambda: step(state, batch))
+    busy, _ = profile_window(f"{cfg.name} train step",
+                             lambda: step(state, batch))
     secs["profile"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     batch = data.batch_at(2, "cuda")
@@ -1959,8 +2207,9 @@ def count_prefill(res) -> dict:
 # phase 8: the command line on the card
 # ---------------------------------------------------------------------------
 CLI_DEVICE = "cuda"
-CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve", "qwen3_8b",
-               "recurrentgemma_2b")
+CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve", "codeqwen15_7b",
+               "granite_3_2b", "qwen3_8b", "granite_20b", "chameleon_34b",
+               "musicgen_medium", "recurrentgemma_2b")
 CLI_MESHES = ("4x2", "2x2x2")
 CLI_ALGORITHMS = ("ring", "hierarchical")
 # the reference's summary and scale CSV headers (repro.core.export.
@@ -1973,7 +2222,11 @@ SCALE_HEADER = ("config,algorithm,devices,pods,ops,wire_bytes,ici_ms,dcn_ms,"
 # (config, mesh) -> {kind: calls}.  The paper applications issue plain
 # collectives on their replica group (no DTensor), as on a CPU mesh
 # (tests/test_torch_sweep_run.py); the serve cell's DTensor reshards by
-# all-to-all on a ``cuda`` mesh where a CPU mesh all-gathers and chunks
+# all-to-all on a ``cuda`` mesh where a CPU mesh all-gathers and chunks.
+# A train cell's scalar all-reduces on 2x2x2 depend on what the sweep's
+# process captured before it (DTensor caches its sharding decisions): these
+# are the counts of this sweep's order; the five transformer-backbone cells
+# swept alone in a fresh process read two more each
 CLI_SWEEP_CALLS = {
     ("paper", "4x2"): {"all-reduce": 4},
     ("paper", "2x2x2"): {"all-reduce": 4},
@@ -1993,6 +2246,26 @@ CLI_SWEEP_CALLS = {
                                    "all-to-all": 14, "reduce-scatter": 50},
     ("recurrentgemma_2b", "2x2x2"): {"all-gather": 103, "all-reduce": 144,
                                      "all-to-all": 14, "reduce-scatter": 50},
+    ("codeqwen15_7b", "4x2"): {"all-gather": 71, "all-reduce": 42,
+                               "all-to-all": 2, "reduce-scatter": 26},
+    ("codeqwen15_7b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
+                                 "all-to-all": 2, "reduce-scatter": 26},
+    ("granite_3_2b", "4x2"): {"all-gather": 71, "all-reduce": 42,
+                              "all-to-all": 2, "reduce-scatter": 26},
+    ("granite_3_2b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
+                                "all-to-all": 2, "reduce-scatter": 26},
+    ("granite_20b", "4x2"): {"all-gather": 71, "all-reduce": 42,
+                             "all-to-all": 26, "reduce-scatter": 26},
+    ("granite_20b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
+                               "all-to-all": 26, "reduce-scatter": 26},
+    ("chameleon_34b", "4x2"): {"all-gather": 69, "all-reduce": 41,
+                               "reduce-scatter": 25},
+    ("chameleon_34b", "2x2x2"): {"all-gather": 69, "all-reduce": 66,
+                                 "reduce-scatter": 25},
+    ("musicgen_medium", "4x2"): {"all-gather": 69, "all-reduce": 41,
+                                 "reduce-scatter": 25},
+    ("musicgen_medium", "2x2x2"): {"all-gather": 69, "all-reduce": 66,
+                                   "reduce-scatter": 25},
 }
 # the scale curve's fleet sizes: the all-to-alls of a cuda capture hold
 # 1.0 M COO entries at 4096 devices and 4.2 M at 16384, which the
@@ -2211,12 +2484,17 @@ def main() -> None:
     grad_errs = check_kernel_grads()
     seconds["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    by_arch = {}
-    for arch in ARCHS:
+    by_arch, served = {}, {}
+    for arch in SERVE_ARCHS:
+        log(f"[serve] {arch}: {torch.cuda.memory_allocated() / 2**30:.2f} "
+            "GiB resident before the build")
         by_arch[arch], res = run_serve(arch)
-        busy_ms = profile_serve(res)
+        prof = profile_serve(res)
+        served[arch] = dict(prof, **{k: res[k] for k in (
+            "prefill_ms", "decode_ms_per_token", "tokens_per_s")},
+            max_memory_gib=res["max_memory_bytes"] / 2**30)
         if arch == "qwen3_8b":
-            prefill = dict(count_prefill(res), busy_ms=busy_ms)
+            prefill = dict(count_prefill(res), busy_ms=prof["prefill_busy_ms"])
         del res        # free this model before the next one is built
         gc.collect()
         torch.cuda.empty_cache()
@@ -2235,6 +2513,8 @@ def main() -> None:
     seconds["lm-train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reports = {arch: run_monitor(arch) for arch in ARCHS}
+    for arch in BACKBONE_ARCHS:
+        run_monitor(arch)
     for arch in ARCHS:
         run_train_monitor(arch)
     for name in PAPER_APPS:
@@ -2270,16 +2550,14 @@ def main() -> None:
             if k in kernels[name]},
          "grad_max_abs_err": grad_errs[name]}
         for name in KERNEL_META],
+        "serve": served,
         "lm_train": {a: {k: r[k] for k in (
             "median_step_ms", "tokens_per_s", "max_memory_gib", "busy_ms",
             "bwd_step_ms", "bwd_ms", "bwd_share", "tflop", "bound_ms")}
             for a, r in lm.items()},
         "phase_seconds": {k: round(v, 3) for k, v in seconds.items()}}
     log(json.dumps(line))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    log(gpu_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

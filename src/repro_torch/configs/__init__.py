@@ -1,7 +1,10 @@
 """Architecture registry (port of ``repro.configs``): one module per
 architecture, each exporting ``CONFIG`` (the published configuration),
 ``REDUCED`` (same family at test scale) and ``TRAIN`` (its train preset).
-Ported so far: ``qwen3_8b`` (dense) and ``recurrentgemma_2b`` (hybrid).
+Ported so far, in the reference's order: the dense ``codeqwen15_7b``,
+``granite_3_2b``, ``qwen3_8b`` and ``granite_20b``, the ``vlm``
+``chameleon_34b`` and ``audio`` ``musicgen_medium`` (both read stub
+embeddings), and the hybrid ``recurrentgemma_2b``.
 
 ``input_specs(cfg, shape)`` builds ``torch.empty`` stand-ins for every
 input of the step a shape exercises (train step / prefill / decode);
@@ -15,7 +18,15 @@ import torch
 
 from repro_torch.models.common import ModelConfig, ShapeConfig
 
-ARCH_IDS = ("qwen3_8b", "recurrentgemma_2b")
+ARCH_IDS = (
+    "codeqwen15_7b",
+    "granite_3_2b",
+    "qwen3_8b",
+    "granite_20b",
+    "chameleon_34b",
+    "musicgen_medium",
+    "recurrentgemma_2b",
+)
 
 # archs whose attention is not quadratic-full -> they also run long_500k
 LONG_CONTEXT_ARCHS = ("recurrentgemma_2b",)

@@ -26,7 +26,10 @@
 //     [max(0, cache_len - window) if window, min(cache_len, L)), each
 //     rounded up to 16 keys, so the work follows the live slots, not L;
 //   * one CTA covers the G = H/KVH query heads that share its kv head, so
-//     each K/V row is read once per group.  K/V tiles of 32 keys stay in the
+//     each K/V row is read once per group; a group wider than a CTA's 2560
+//     outputs (Granite-20B's MQA: 48 heads of 128) is cut into `hblocks`
+//     equal blocks of heads, one CTA each (the host picks the fewest that
+//     fit), each reading the kv head's rows.  K/V tiles of 32 keys stay in the
 //     cache's dtype in shared memory, loaded with 16-byte cp.async into a
 //     double-buffered ring: the next tile loads while this one is used;
 //   * scores: each warp holds 4 keys of the tile in registers, lanes across
@@ -38,7 +41,7 @@
 //   * P V: with dh dividing the 256 threads, thread t owns column t % dh of
 //     every (256 / dh)-th head, so a V element is read once for all heads
 //     of a thread; the keys are the outer loop, so its sums advance side by
-//     side.  Up to G * dh = 2560 outputs, 10 a thread;
+//     side.  Up to 2560 outputs a CTA (G / hblocks * dh), 10 a thread;
 //   * each CTA writes its fp32 (m, l, acc) to a scratch buffer (an empty
 //     chunk writes m = NEG_INF, l = 0, acc = 0), and a second small kernel
 //     combines them per (b, query head): M = max m_s, out = sum 2^(m_s-M)
@@ -53,7 +56,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int BK = 32;        // keys per tile: one per lane in the softmax
-constexpr int NACC = 10;      // output elements per thread: G*dh <= 2560
+constexpr int NACC = 10;      // output elements per thread: a CTA's <= 2560
 constexpr int COMBINE_X = 64;  // combine: outputs a CTA
 constexpr int COMBINE_Y = 4;   // combine: thread rows sharing the splits
 
@@ -120,9 +123,9 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                           float* __restrict__ part_m,
                           float* __restrict__ part_l, int lmax, int nh,
                           int nkvh, int dh, float scale, int window,
-                          int nsplit) {
+                          int nsplit, int hblocks) {
   constexpr int VEC = vec_of<TKV>();
-  const int g_heads = nh / nkvh;
+  const int g_heads = nh / (nkvh * hblocks);  // this CTA's query heads
   const int dhp = (dh + VEC - 1) / VEC * VEC;
   const int nvec = dhp / VEC;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -134,9 +137,12 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   float* m_run = alpha + g_heads;                        // [G]
   float* l_run = m_run + g_heads;                        // [G]
 
-  const int bk = blockIdx.x;  // b * nkvh + kv head
-  const int b = bk / nkvh;
-  const int kvh = bk - b * nkvh;
+  // (b, kv head, head block): the combine sees kv head x head block as
+  // one group of g_heads query heads, numbered bk
+  const int bk = blockIdx.x;  // (b * nkvh + kv head) * hblocks + block
+  const int b = bk / (nkvh * hblocks);
+  const int hg = bk - b * nkvh * hblocks;  // its heads: hg * g_heads + [0, g)
+  const int kvh = hg / hblocks;
   const int s = blockIdx.y;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -195,7 +201,7 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   for (int idx = tid; idx < g_heads * dhp; idx += THREADS) {
     const int g = idx / dhp, c = idx - g * dhp;
     qs[idx] = c < dh
-        ? to_f(q[((size_t)b * nh + kvh * g_heads + g) * dh + c]) * qscale
+        ? to_f(q[((size_t)b * nh + hg * g_heads + g) * dh + c]) * qscale
         : 0.f;
   }
   for (int g = tid; g < g_heads; g += THREADS) {
@@ -419,8 +425,8 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   }
 }
 
-// The splits' log-sum-exp combine for a (b, kv head) group: a CTA takes
-// COMBINE_X outputs, and its COMBINE_Y rows of threads take every
+// The splits' log-sum-exp combine for a (b, kv head, head block) group: a
+// CTA takes COMBINE_X outputs, and its COMBINE_Y rows of threads take every
 // COMBINE_Y-th split each, so a thread's loads are few and the CTAs many;
 // the rows' partial sums meet in shared memory, added in row order.
 template <typename TQ>
@@ -470,10 +476,12 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const int* clen,
            void* o, float* scratch, int b, int lmax, int nh, int nkvh,
-           int dh, float scale, int window, int nsplit, cudaStream_t stream) {
-  const int g = nh / nkvh;
+           int dh, float scale, int window, int nsplit, int hblocks,
+           cudaStream_t stream) {
+  const int g = nh / (nkvh * hblocks);   // query heads a CTA
+  const int groups = b * nkvh * hblocks;
   const size_t n_out = (size_t)g * dh;
-  const size_t parts = (size_t)b * nkvh * nsplit;
+  const size_t parts = (size_t)groups * nsplit;
   float* part_acc = scratch;
   float* part_m = part_acc + parts * n_out;
   float* part_l = part_m + parts * g;
@@ -482,15 +490,15 @@ int launch(const void* q, const void* k, const void* v, const int* clen,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(b * nkvh, nsplit), THREADS, smem, stream>>>(
+  kern<<<dim3(groups, nsplit), THREADS, smem, stream>>>(
       (const TQ*)q, (const TKV*)k, (const TKV*)v, clen, part_acc, part_m,
-      part_l, lmax, nh, nkvh, dh, scale, window, nsplit);
+      part_l, lmax, nh, nkvh, dh, scale, window, nsplit, hblocks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the combine is launched as a programmatic dependent of the split
   // kernel: its launch overlaps the split kernel's run
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(b * nkvh,
+  cfg.gridDim = dim3(groups,
                      (unsigned)((n_out + COMBINE_X - 1) / COMBINE_X));
   cfg.blockDim = dim3(COMBINE_X, COMBINE_Y);
   cfg.dynamicSmemBytes = 0;
@@ -510,18 +518,19 @@ int launch(const void* q, const void* k, const void* v, const int* clen,
 template <typename TQ>
 int dispatch_kv(const void* q, const void* k, const void* v, const int* clen,
                 void* o, float* scratch, int b, int lmax, int nh, int nkvh,
-                int dh, float scale, int window, int nsplit, int kv_dtype,
-                cudaStream_t s) {
+                int dh, float scale, int window, int nsplit, int hblocks,
+                int kv_dtype, cudaStream_t s) {
   switch (kv_dtype) {
     case kF32:
       return launch<TQ, float>(q, k, v, clen, o, scratch, b, lmax, nh, nkvh,
-                               dh, scale, window, nsplit, s);
+                               dh, scale, window, nsplit, hblocks, s);
     case kBF16:
       return launch<TQ, __nv_bfloat16>(q, k, v, clen, o, scratch, b, lmax, nh,
-                                       nkvh, dh, scale, window, nsplit, s);
+                                       nkvh, dh, scale, window, nsplit,
+                                       hblocks, s);
     case kF16:
       return launch<TQ, __half>(q, k, v, clen, o, scratch, b, lmax, nh, nkvh,
-                                dh, scale, window, nsplit, s);
+                                dh, scale, window, nsplit, hblocks, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -552,14 +561,18 @@ int both_attrs(int kv_dtype, int* out) {
 }  // namespace
 
 // scratch: fp32, b * nkvh * nsplit * (G * dh + 2 * G) elements (the splits'
-// acc, then m, then l).
+// acc, then m, then l).  hblocks: the blocks of heads a kv head's group of
+// G = nh / nkvh query heads is cut into, a divisor of G with
+// G / hblocks * dh <= 2560.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
                                   const void* cache_len, void* o,
                                   void* scratch, int b, int lmax, int nh,
                                   int nkvh, int dh, float scale, int window,
-                                  int nsplit, int q_dtype, int kv_dtype,
-                                  void* stream) {
-  if ((nh / nkvh) * dh > NACC * THREADS || nsplit < 1)
+                                  int nsplit, int hblocks, int q_dtype,
+                                  int kv_dtype, void* stream) {
+  const int g = nh / nkvh;
+  if (nsplit < 1 || hblocks < 1 || g % hblocks != 0 ||
+      g / hblocks * dh > NACC * THREADS)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* clen = (const int*)cache_len;
@@ -567,14 +580,15 @@ extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
   switch (q_dtype) {
     case kF32:
       return dispatch_kv<float>(q, k, v, clen, o, part, b, lmax, nh, nkvh, dh,
-                                scale, window, nsplit, kv_dtype, s);
+                                scale, window, nsplit, hblocks, kv_dtype, s);
     case kBF16:
       return dispatch_kv<__nv_bfloat16>(q, k, v, clen, o, part, b, lmax, nh,
                                         nkvh, dh, scale, window, nsplit,
-                                        kv_dtype, s);
+                                        hblocks, kv_dtype, s);
     case kF16:
       return dispatch_kv<__half>(q, k, v, clen, o, part, b, lmax, nh, nkvh,
-                                 dh, scale, window, nsplit, kv_dtype, s);
+                                 dh, scale, window, nsplit, hblocks, kv_dtype,
+                                 s);
   }
   return (int)cudaErrorInvalidValue;
 }

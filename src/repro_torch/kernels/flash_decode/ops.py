@@ -17,15 +17,25 @@ from .. import build
 from .ref import decode_bwd, decode_ref
 
 launches = 0
-MAX_GROUP_WIDTH = 2560      # G * dh outputs per CTA (csrc NACC * THREADS)
+MAX_GROUP_WIDTH = 2560      # outputs per CTA, heads x dh (csrc NACC * THREADS)
 SPLIT_KEYS = 16             # a split's chunk is a multiple of 16 keys
 
 
+def head_blocks(g: int, dh: int) -> int:
+    """Blocks of heads a kv head's ``g`` query heads are cut into, one CTA
+    each: the fewest that divide ``g`` and keep a block's ``heads * dh``
+    outputs within :data:`MAX_GROUP_WIDTH` (1 for every GQA layout served;
+    3 blocks of 16 for Granite-20B's 48 heads of 128 on one kv head)."""
+    return next(n for n in range(1, g + 1)
+                if g % n == 0 and g // n * dh <= MAX_GROUP_WIDTH)
+
+
 def num_splits(b: int, kvh: int, lmax: int, sms: int) -> int:
-    """Splits of the cache per (batch row, kv head): the largest power of
-    two that keeps ``b * kvh * nsplit`` within two CTAs per SM, at least 1
-    and at most one per 16 slots of ``lmax``.  It never depends on
-    ``cache_len``, which only the device reads."""
+    """Splits of the cache per (batch row, kv head) group: the largest
+    power of two that keeps ``b * kvh * nsplit`` within two CTAs per SM, at
+    least 1 and at most one per 16 slots of ``lmax``.  ``kvh`` counts a kv
+    head's :func:`head_blocks` apart.  It never depends on ``cache_len``,
+    which only the device reads."""
     per_group = max(1, 2 * sms // max(1, b * kvh))
     n = 1 << (per_group.bit_length() - 1)
     return max(1, min(n, -(-lmax // SPLIT_KEYS)))
@@ -34,8 +44,9 @@ def num_splits(b: int, kvh: int, lmax: int, sms: int) -> int:
 def splits_for(q: torch.Tensor, k_cache: torch.Tensor) -> int:
     """:func:`num_splits` for these CUDA tensors (the SM count is read once
     per device)."""
-    b, lmax, kvh, _ = k_cache.shape
-    return num_splits(b, kvh, lmax, build.sm_count(q.device.index))
+    b, lmax, kvh, dh = k_cache.shape
+    return num_splits(b, kvh * head_blocks(q.shape[1] // kvh, dh), lmax,
+                      build.sm_count(q.device.index))
 
 
 def _launch(q, k_cache, v_cache, cache_len, window: int):
@@ -52,7 +63,7 @@ def _launch(q, k_cache, v_cache, cache_len, window: int):
                           dtype=torch.float32, device=q.device)
     err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
              build.ptr(cache_len), build.ptr(o), build.ptr(scratch), b, lmax,
-             h, kvh, dh, dh ** -0.5, window, nsplit,
+             h, kvh, dh, dh ** -0.5, window, nsplit, head_blocks(g, dh),
              build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_cache.dtype],
              build.stream_of(q))
     build.check("flash_decode", err)
@@ -115,9 +126,8 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
             raise TypeError("flash_decode kernel takes f32/bf16/f16, got "
                             f"q {q.dtype}, cache {k_cache.dtype}/"
                             f"{v_cache.dtype}")
-        if (h // k_cache.shape[2]) * dh > MAX_GROUP_WIDTH:
-            raise ValueError(f"query group width {(h // k_cache.shape[2])}"
-                             f"x{dh} > {MAX_GROUP_WIDTH}")
+        if dh > MAX_GROUP_WIDTH:
+            raise ValueError(f"head dim {dh} > {MAX_GROUP_WIDTH}")
         if not (q.is_contiguous() and k_cache.is_contiguous()
                 and v_cache.is_contiguous()):
             raise ValueError("flash_decode kernel needs contiguous q/caches")

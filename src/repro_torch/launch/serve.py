@@ -6,12 +6,13 @@ communication profile of the same serve step on a fake mesh.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma_2b
 
-It builds the architecture (``qwen3_8b`` or ``recurrentgemma_2b``) at its
-published width (``--layers`` cuts the depth), with random weights from
-seed 0 cast once to bf16, and serves ``--batch`` random prompts through the
-port's kernels on ``--device`` (default ``cuda``; there is no quiet
-fallback to the CPU).  The cast takes every leaf, RecurrentGemma's RG-LRU
-``lam``, gate biases and conv bias included: ``lam`` lies in about
+It builds the architecture (any ``configs.ARCH_IDS`` entry that reads
+token ids) at its published width (``--layers`` cuts the depth), with
+random weights from seed 0 cast once to bf16, and serves ``--batch``
+random prompts through the port's kernels on ``--device`` (default
+``cuda``; there is no quiet fallback to the CPU).  The cast takes every
+leaf, RecurrentGemma's RG-LRU ``lam``, gate biases and conv bias
+included: ``lam`` lies in about
 [4.3, 8.9], where the bf16 step is 1/32 to 1/16, so the decays move by a
 few percent against fp32 parameters.  Then it captures
 prefill and decode as two phases of a ``MonitorSession`` on a fake
@@ -64,7 +65,16 @@ def serve(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int = 0,
 
     The timed run follows an untimed one of :data:`WARMUP_TOKENS` tokens
     over the same prompts, so one-time set-up (library handles, first-call
-    dispatch) stays out of the serving times."""
+    dispatch) stays out of the serving times.
+
+    A config that reads embeddings (``input_mode == "embeddings"``:
+    Chameleon-34B, MusicGen-medium) is refused: its modality front end is
+    a stub, and serving feeds back token ids, as the reference's does."""
+    if cfg.input_mode == "embeddings":
+        raise ValueError(
+            f"{cfg.name} reads embeddings, and its modality front end is a "
+            "stub: serving feeds token ids back; drive model.prefill and "
+            "model.decode_step with {'embeds': ...} instead")
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg, compute_dtype=str(dtype).split(".")[-1])
     model = build_model(cfg)

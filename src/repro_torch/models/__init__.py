@@ -7,16 +7,18 @@ from .transformer import TransformerLM
 
 def build_model(cfg: ModelConfig):
     """The model for a config, by family as the reference's
-    ``repro.models.api.build_model``: ``hybrid`` is :class:`GriffinLM`,
-    ``dense`` :class:`TransformerLM`; the other families wait for later
-    port slices.  The paper's applications (:class:`ResNet18`,
-    :class:`GNMT`) take no ``ModelConfig``, as in the reference."""
+    ``repro.models.api.build_model``: ``hybrid`` is :class:`GriffinLM`;
+    ``dense``, ``moe``, ``vlm`` and ``audio`` run on the transformer
+    backbone (:class:`TransformerLM`, which refuses experts until MoE is
+    ported); ``ssm`` (xLSTM) waits for a later port slice.  The paper's
+    applications (:class:`ResNet18`, :class:`GNMT`) take no
+    ``ModelConfig``, as in the reference."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"model family 'ssm' ({cfg.name}, xLSTM) is not ported yet")
     if cfg.family == "hybrid":
         return GriffinLM(cfg)
-    if cfg.family == "dense":
-        return TransformerLM(cfg)
-    raise NotImplementedError(
-        f"model family {cfg.family!r} ({cfg.name}) is not ported yet")
+    return TransformerLM(cfg)
 
 
 __all__ = ["GNMT", "GriffinLM", "ModelConfig", "ResNet18", "Spec",

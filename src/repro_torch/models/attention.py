@@ -13,8 +13,14 @@ Where the port differs from the reference:
 * The cache is laid out by heads (:func:`kv_cache_axes`), not by sequence:
   the decode kernel needs whole sequences per head, so the reference's
   context-parallel ``kv_seq`` cache waits for a later slice.
-* The context-parallel prefill branch (``heads % tp != 0`` with small
-  scores) is not ported: heads are padded to a multiple of ``tp`` instead.
+* Where heads do not divide the model axis and one score block is small
+  (:func:`use_context_parallel`, the reference's predicate), prefill and
+  training take the reference's context-parallel branch: q sharded over
+  the sequence (``attn_seq``), k and v expanded and replicated, one score
+  block a shard.  The kernel runs on each shard with the shard's global
+  position as ``q_offset`` (:func:`context_parallel_offset`), which the
+  reference's global-view program does not need.  Elsewhere heads are
+  padded to a multiple of ``tp``, as in the reference.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ from .common import ModelConfig, Spec, rms_norm
 from .layers import apply_rope
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+CP_SCORE_BYTES = 2 << 30   # the context-parallel branch's score-block limit
+CP_AXES = ("batch", "attn_seq", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -67,6 +75,28 @@ def head_sharding_axes(cfg: ModelConfig, shd, nh: int, nkv: int):
         q_ax = ("batch", "seq", None, None)
         kv_ax = q_ax
     return q_ax, kv_ax
+
+
+def use_context_parallel(b: int, s: int, nh: int, tp: int, dp: int) -> bool:
+    """The reference's choice of the context-parallel schedule for an
+    attention over ``b`` sequences of ``s`` with ``nh`` heads, on ``tp``
+    model shards and ``dp`` batch shards: heads do not divide ``tp`` and one
+    shard's fp32 score block, ``b_loc * nh * (s // tp) * s * 4`` bytes, is
+    under 2 GiB.  Elsewhere heads are padded to a multiple of ``tp``."""
+    if tp <= 1 or nh % tp == 0:
+        return False
+    b_loc = max(1, b // max(1, dp))
+    return b_loc * nh * (s // tp) * s * 4 < CP_SCORE_BYTES
+
+
+def context_parallel_offset(shd, s: int) -> int:
+    """Global position of this rank's first query row under
+    :data:`CP_AXES`: its ``model`` coordinate times ``s // tp`` when the
+    sequence is sharded there, else 0 (the Sharder's fallback leaves a
+    sequence that ``tp`` does not divide whole)."""
+    if shd.spec((1, s, 1, 1), CP_AXES)[1] is None:
+        return 0
+    return shd.mesh.get_local_rank("model") * (s // shd.tp)
 
 
 def pad_heads(x, nh_pad: int):
@@ -201,9 +231,17 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
     dt = x.dtype
     q_ax, kv_ax = head_sharding_axes(cfg, shd, nh, nkv)
 
-    q = (x @ params["wq"].to(dt)).reshape(b, s, nh, dh)
-    k = (x @ params["wk"].to(dt)).reshape(b, s, nkv, dh)
-    v = (x @ params["wv"].to(dt)).reshape(b, s, nkv, dh)
+    tp = shd.logical_size("heads")
+
+    def heads(w, n):
+        t = x @ params[w].to(dt)
+        if n > 1 and n % tp:
+            # DTensor cannot unflatten a model shard that splits a head
+            # (one head, MQA, unflattens along its dh): gather it first
+            t = shd.constraint(t, ("batch", "seq", None))
+        return t.reshape(b, s, n, dh)
+
+    q, k, v = heads("wq", nh), heads("wk", nkv), heads("wv", nkv)
 
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps, shd, q_ax)
@@ -214,15 +252,20 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
         q = _rope(shd, q, positions, cfg.rope_theta)
         k = _rope(shd, k, positions, cfg.rope_theta)
         k_gqa, v_gqa = k, v              # unexpanded GQA form for the cache
-        tp = shd.logical_size("heads")
-        if tp > 1:
+        q_off = 0
+        if use_context_parallel(b, s, nh, tp, shd.dp):
+            q = shd.constraint(q, CP_AXES)
+            k = shd.constraint(_expand_kv(k, nh), ("batch", None, None, None))
+            v = shd.constraint(_expand_kv(v, nh), ("batch", None, None, None))
+            q_ax, q_off = CP_AXES, context_parallel_offset(shd, s)
+        elif tp > 1:
             nh_pad = -(-nh // tp) * tp
             q = shd.constraint(pad_heads(q, nh_pad), q_ax)
             k = shd.constraint(pad_heads(_expand_kv(k, nh), nh_pad), q_ax)
             v = shd.constraint(pad_heads(_expand_kv(v, nh), nh_pad), q_ax)
         out = shd.local(
             lambda q_, k_, v_: flash_ops.attend(q_, k_, v_, causal=True,
-                                                window=win),
+                                                window=win, q_offset=q_off),
             (q, k, v), (q_ax, None, None))
         if out.shape[2] != nh:
             out = out[:, :, :nh]
@@ -258,7 +301,14 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
                         (None, None, None, cache_ax, cache_ax))
         new_cache = cache
 
-    out = out.reshape(b, -1, nh * dh).to(dt) @ params["wo"].to(dt)
+    out = out.reshape(b, -1, nh * dh)
+    if nh > 1 and nh % tp:
+        # heads that do not divide ``model`` enter the out-projection
+        # gathered (DTensor flattens neither the context-parallel sequence
+        # shards for the matmul nor, backwards, a gradient shard that
+        # splits a head)
+        out = shd.constraint(out, ("batch", "seq", None))
+    out = out.to(dt) @ params["wo"].to(dt)
     return shd.constraint(out, ("batch", "seq", None)), new_cache
 
 

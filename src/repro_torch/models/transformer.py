@@ -1,5 +1,7 @@
-"""Decoder-only dense transformer LM (port of the dense half of
-``repro.models.transformer``).
+"""Decoder-only transformer LM (port of the dense half of
+``repro.models.transformer``): the dense, ``vlm`` and ``audio`` configs.
+A config with ``input_mode == "embeddings"`` reads ``batch["embeds"]``
+(the stubbed modality front end's output) in place of token ids.
 
 Parameters keep the reference's stacked ``(L, ...)`` layout; the
 reference's ``scan`` over layers is a Python loop that indexes layer ``l``
@@ -95,6 +97,12 @@ class TransformerLM:
     # forward
     # ------------------------------------------------------------------
     def _inputs(self, params, batch, shd):
+        cfg = self.cfg
+        if cfg.input_mode == "embeddings":
+            # the kernels take contiguous rows; a step's embeddings may be
+            # a view into a longer sequence
+            x = batch["embeds"].to(getattr(torch, cfg.compute_dtype))
+            return shd.shard(x.contiguous(), ("batch", "seq", None))
         tokens = shd.shard(batch["tokens"], ("batch", "seq"))
         return layers.embed(params["embed"], tokens, self.cfg, shd)
 
@@ -164,7 +172,8 @@ class TransformerLM:
                 "v": ("layers",) + per_layer["v"], "len": ()}
 
     def decode_step(self, params, cache, batch, shd):
-        """batch ``{"tokens": (B,1)}`` -> ``(logits (B,1,V), cache)``.
+        """batch ``{"tokens": (B,1)}`` (or ``{"embeds": (B,1,D)}``) ->
+        ``(logits (B,1,V), cache)``.
 
         Writes the new token's k/v into ``cache["k"]``/``cache["v"]`` in
         place and advances ``cache["len"]`` in place (the reference returns
@@ -197,7 +206,7 @@ class TransformerLM:
             vs.append(new_cache["v"])
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                  "len": torch.full((), s, dtype=torch.int32,
-                                   device=batch["tokens"].device)}
+                                   device=x.device)}
         # the kernels take contiguous rows
         logits = self._logits(params, x[:, -1:].contiguous(), shd)
         return logits[:, 0], cache

@@ -228,7 +228,8 @@ def serve_cell(mesh, cfg, *, batch: int, prompt_len: int, max_len: int,
                dtype: Optional[torch.dtype] = None) -> dict:
     """Prefill (the whole prompt, filling a ``max_len`` KV cache) and one
     decode step against that cache, as the two phases of one session:
-    ``dict(captures=[...])``.  Parameters are ``cfg``'s ``param_dtype``
+    ``dict(captures=[...])``; token ids, or bf16 embeddings for a config
+    that reads them.  Parameters are ``cfg``'s ``param_dtype``
     unless ``dtype`` is given.  Called under the session's fake mode."""
     from repro_torch.models import build_model
     from repro_torch.parallel import Sharder
@@ -240,15 +241,21 @@ def serve_cell(mesh, cfg, *, batch: int, prompt_len: int, max_len: int,
     cache = shd.shard_tree(model.cache_shapes(batch, max_len, dev),
                            model.cache_axes())
     cache["len"] = torch.full((), prompt_len, dtype=torch.int32, device=dev)
-    prompts = torch.zeros((batch, prompt_len), dtype=torch.long, device=dev)
-    step_tokens = torch.zeros((batch, 1), dtype=torch.long, device=dev)
+
+    def inputs(s):
+        if cfg.input_mode == "embeddings":   # the stub front end's output
+            return {"embeds": torch.zeros((batch, s, cfg.d_model),
+                                          dtype=torch.bfloat16, device=dev)}
+        return {"tokens": torch.zeros((batch, s), dtype=torch.long,
+                                      device=dev)}
+
     return {"captures": [
         {"phase": "prefill", "name": "prefill",
          "fn": lambda p, b: model.prefill(p, b, shd, max_len=max_len),
-         "args": (params, {"tokens": prompts})},
+         "args": (params, inputs(prompt_len))},
         {"phase": "decode", "name": "decode",
          "fn": lambda p, c, b: model.decode_step(p, c, b, shd),
-         "args": (params, cache, {"tokens": step_tokens})},
+         "args": (params, cache, inputs(1))},
     ]}
 
 

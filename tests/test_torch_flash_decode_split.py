@@ -116,3 +116,18 @@ def test_num_splits_ignores_cache_len():
     assert fd_ops.num_splits(8, 1, 2048, 132) == 32     # RecurrentGemma
     assert fd_ops.num_splits(8, 8, 256, 132) == 4       # Qwen3-8B
     assert fd_ops.num_splits(8, 1, 160, 132) == 10      # 160-slot ring
+
+
+@pytest.mark.parametrize("g,dh,want", [
+    (4, 128, 1), (1, 128, 1), (10, 256, 1), (8, 128, 1), (1, 64, 1),
+    (4, 64, 1), (48, 128, 3), (64, 128, 4), (41, 128, 41), (30, 256, 3)])
+def test_head_blocks(g, dh, want):
+    """A kv head's query heads go to one CTA when their outputs fit its
+    2560 (Qwen3-8B 4 x 128, the MHA configs, RecurrentGemma-2B's 10 x 256,
+    Chameleon-34B 8 x 128); wider groups (Granite-20B's MQA, 48 x 128) are
+    cut into the fewest equal blocks that fit, one CTA each."""
+    n = fd_ops.head_blocks(g, dh)
+    assert n == want
+    assert g % n == 0 and g // n * dh <= fd_ops.MAX_GROUP_WIDTH
+    assert all(g % m or g // m * dh > fd_ops.MAX_GROUP_WIDTH
+               for m in range(1, n))

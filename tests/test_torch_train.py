@@ -320,8 +320,9 @@ def test_train_presets_cells_and_input_specs_match_reference():
             assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
                     for k, v in got.items()} == \
                 {k: (v.shape, str(v.dtype)) for k, v in want.items()}
-            assert set(batch_shardings(got).values()) <= {
-                ("batch", "seq")}
+            assert batch_shardings(got) == {
+                k: ("batch", "seq", None) if k == "embeds"
+                else ("batch", "seq") for k in got}
 
 
 # ---------------------------------------------------------------------------
