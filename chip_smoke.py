@@ -20,7 +20,16 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               the transformer-backbone configs' shapes: flash attention
               and flash decode (the 160-slot serve cache) at MHA 32/32
               dh 128, MHA 24/24 dh 64, MQA 48/1 dh 128 and 64/8 dh 128,
-              decode also at 32/8 dh 64; flash attention as the
+              decode also at 32/8 dh 64; flash decode's partial on a
+              sequence-sharded (``kv_seq``) cache: Qwen3-8B's 160-slot
+              serve cache and RecurrentGemma-2B's wrapped 2048-slot ring,
+              each cut into 4 and 16 shards launched at their
+              ``kv_offset``s and merged on the card by ``lse_combine``,
+              against the unsplit kernel and the plain version (the time
+              the shards' launches, the merge's logged apart), and one
+              rank's share of Qwen3-8B's decode_32k on the 16x16 mesh
+              (q (8,32,128) over (8,2048,8,128) at kv_offset 2048, its
+              fp32 output and log-sum-exp); flash attention as the
               context-parallel branch runs it (a causal S=512 problem in 4
               sequence shards, each at its ``q_offset``, against the
               unsplit kernel and the plain version); RMSNorm at widths
@@ -163,13 +172,26 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               ``repro_torch.core.op_cost`` (live on the card and again under
               FakeTensorMode: the counts must be equal) -- FLOPs over
               989 TFLOP/s bf16 or bytes over 3.35 TB/s, the larger -- which
-              must not exceed that prefill's measured device busy time.
+              must not exceed that prefill's measured device busy time;
+9. dryrun  -- ``python -m repro_torch dryrun`` in subprocesses started
+              together, on fake ``cuda`` production meshes (16x16 and
+              2x16x16): every ported architecture's decode_32k on both,
+              RecurrentGemma-2B's long_500k on both (``--mesh both``), and
+              Qwen3-8B's prefill_32k and train_4k on the single pod, each
+              at its published size.  Every cell must be ``ok``, and a
+              decode cell's cache bytes per device must equal
+              ``dryrun.cache_bytes_per_device`` (Qwen3-8B's 2.42 GB on
+              16x16); each cell's trace seconds and total bytes a device
+              are printed.
 
-Then one JSON line with every kernel's numbers (a kernel's ``launches``
+Then one JSON line with every kernel's numbers (flash decode's with its
+``kv_seq`` rank share, whose ``launches`` are the partial op's in the
+serve phase: 0, the card being a mesh of model 1; a kernel's ``launches``
 are those of its main path: the serve phase's, summed over the seven
 served architectures and named by them in ``launches_by_arch``, RG-LRU's
 backward kernel's the lm-train phase's), each served model's times,
-busy ms and idle shares, the lm-train numbers and each phase's seconds,
+busy ms and idle shares, the lm-train numbers, the dry-run cells' trace
+seconds and bytes and each phase's seconds,
 the card's name and power limit as nvidia-smi prints them, and, last, the
 device line.  The script
 needs ``src/repro_torch`` beside it and a CUDA device, and imports nothing of
@@ -380,7 +402,8 @@ def launch_floor_ms() -> float:
 def kernel_counters() -> dict:
     """Each kernel's launch counter, by kernel name: the wrapper module and
     the attribute its CUDA branch adds one to at every launch (RG-LRU's
-    wrapper counts its forward and its backward kernel apart)."""
+    wrapper counts its forward and its backward kernel apart, flash
+    decode's its whole-cache and its partial op)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.rglru import ops as rg_ops
@@ -389,6 +412,7 @@ def kernel_counters() -> dict:
     return {"rmsnorm": (rn_ops, "launches"),
             "flash_attention": (fa_ops, "launches"),
             "flash_decode": (fd_ops, "launches"),
+            "flash_decode_partial": (fd_ops, "partial_launches"),
             "rglru": (rg_ops, "launches"),
             "rglru_bwd": (rg_ops, "bwd_launches")}
 
@@ -755,7 +779,9 @@ def check_kernels() -> dict:
         if main is None:
             main = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
                         bound_by=by)
-    results["flash_decode"] = dict(main, max_abs_err=max(errs))
+    kv_errs, share = check_decode_shards(record, randn, launched)
+    results["flash_decode"] = dict(main, max_abs_err=max(errs + kv_errs),
+                                   kv_seq=share)
 
     # -- RG-LRU, forward and backward kernels: every case of rglru_cases()
     # in both input regimes, each against the plain versions on the same
@@ -927,6 +953,143 @@ def check_cp_shards(record, randn, launched) -> float:
     return err.item()
 
 
+# the sequence-sharded (``kv_seq``) cache's partial decode: the serve
+# paths' caches cut into 4 and 16 shards, and one rank's share of Qwen3-8B's
+# decode_32k cell on the 16x16 production mesh (batch 128 over data 16,
+# 32768 slots over model 16: slots [2048, 4096) at model coordinate 1)
+KVSEQ_SHARDS = (4, 16)
+KVSEQ_SHARE = dict(batch=8, heads=32, kv_heads=8, dh=128, slots=2048,
+                   kv_offset=2048, lmax=32768)
+
+
+def check_decode_shards(record, randn, launched) -> tuple:
+    """The partial decode kernel (``decode_attend_partial``) as the model
+    runs it on a sequence-sharded cache.  Qwen3-8B's 160-slot serve cache
+    (cache_len 129) and RecurrentGemma-2B's 2048-slot ring after it wraps
+    (cache_len 2148), each cut into 4 and 16 shards, every shard launched
+    at its ``kv_offset`` against the global L, the fp32 partials merged on
+    the card by ``lse_combine`` and rounded once to q's dtype (as the
+    model's merge does): held against the unsplit kernel and the plain
+    version at the decode tolerance.  The time is the shards' partial
+    launches alone, beside the plain partials' and the bound of the same
+    work; the merge (a plain-PyTorch log-sum-exp over a list, which the
+    model does with two all-reduces instead) is timed apart and logged.
+    Then one rank's share of Qwen3-8B's decode_32k (:data:`KVSEQ_SHARE`),
+    its fp32 output and log-sum-exp against the plain partial, timed
+    beside its bytes bound and SDPA over the same shard.  Returns (errors,
+    the share's numbers; the caller adds its launches from the serve
+    run's counts)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode.ref import (decode_partial_ref,
+                                                      decode_ref, lse_combine)
+
+    dev = torch.device("cuda")
+    slots = PROMPT_LEN + NEW_TOKENS
+    errs = []
+    for case, clen, h, kvh, dh, lmax in (
+            (f"qwen cache_len 129 L{slots}", 129, 32, 8, 128, slots),
+            ("ring cache_len 2148 L2048", 2048 + 100, 10, 1, 256, 2048)):
+        kc, vc = randn(BATCH, lmax, kvh, dh), randn(BATCH, lmax, kvh, dh)
+        q = randn(BATCH, h, dh)
+        cl = torch.tensor(clen, dtype=torch.int32, device=dev)
+        whole = fd_ops.decode_attend(q, kc, vc, cl).float()
+        ref = decode_ref(q, kc, vc, cl).float()
+        tol = torch.finfo(q.dtype).eps * ref.abs().max().item()
+        for p in KVSEQ_SHARDS:
+            n = lmax // p
+            shards = [(kc[:, r * n:(r + 1) * n].contiguous(),
+                       vc[:, r * n:(r + 1) * n].contiguous(), r * n)
+                      for r in range(p)]
+
+            def partials(partial):
+                return [partial(q, k_, v_, cl, kv_offset=off, lmax=lmax)
+                        for k_, v_, off in shards]
+
+            def kernel():
+                return partials(fd_ops.decode_attend_partial)
+
+            def plain():
+                return partials(decode_partial_ref)
+
+            def merge(parts):
+                return lse_combine([o for o, _ in parts],
+                                   [l for _, l in parts])[0].to(q.dtype)
+
+            parts = kernel()
+            got = merge(parts).float()
+            torch.cuda.synchronize()
+            launched["flash_decode"].add((q.dtype, kc.dtype))
+            err = (got - ref).abs().max().item()
+            split = (got - whole).abs().max().item()
+            log(f"[kernels] flash_decode {case} in {p} kv_seq shards of {n} "
+                f"slots: against the unsplit kernel max_abs_diff "
+                f"{split:.3e} (tol {tol:g})")
+            if split > tol:
+                fail(f"flash_decode {case}: {p} merged shards differ from "
+                     f"the unsplit kernel by {split} > {tol}")
+            merge_ms = time_ms(lambda: merge(parts))
+            log(f"[kernels] flash_decode {case} in {p} kv_seq shards: the "
+                f"merge (lse_combine over {p} partials) {merge_ms:.4f} ms, "
+                "not in the kernel's time")
+            live = min(clen, lmax)
+            kt, vt = (t[:, :live].transpose(1, 2) for t in (kc, vc))
+            # the live keys' k/v and q read by every shard; each shard's
+            # fp32 output and log-sum-exp written
+            b, by = bound_ms(2 * BATCH * live * kvh * dh * 2
+                             + p * q.numel() * 2
+                             + p * (q.numel() + BATCH * h) * 4,
+                             4 * BATCH * h * live * dh)
+            record("flash_decode", f"{case} in {p} kv_seq shards", err, tol,
+                   time_ms(kernel), time_ms(plain),
+                   time_ms(lambda: F.scaled_dot_product_attention(
+                       q[:, :, None], kt, vt, enable_gqa=True)), b, by)
+            errs.append(err)
+
+    sh = KVSEQ_SHARE
+    kc = randn(sh["batch"], sh["slots"], sh["kv_heads"], sh["dh"])
+    vc = randn(sh["batch"], sh["slots"], sh["kv_heads"], sh["dh"])
+    q = randn(sh["batch"], sh["heads"], sh["dh"])
+    cl = torch.tensor(sh["lmax"], dtype=torch.int32, device=dev)
+    kw = dict(kv_offset=sh["kv_offset"], lmax=sh["lmax"])
+
+    def kernel():
+        return fd_ops.decode_attend_partial(q, kc, vc, cl, **kw)
+
+    out, lse = kernel()
+    torch.cuda.synchronize()
+    ref, ref_lse = decode_partial_ref(q, kc, vc, cl, **kw)
+    err = (out - ref).abs().max().item()
+    lse_err = (lse - ref_lse).abs().max().item()
+    # fp32 outputs of bf16 inputs: the merge rounds to q's dtype after, so
+    # the output is held to the decode tolerance; the log-sum-exp (base-2
+    # sums, then one log2) to 1e-5 of max(1, max|ref|)
+    tol = torch.finfo(q.dtype).eps * ref.abs().max().item()
+    lse_tol = 1e-5 * max(1.0, ref_lse.abs().max().item())
+    log(f"[kernels] flash_decode decode_32k rank share: lse max_abs_err "
+        f"{lse_err:.3e} (tol {lse_tol:.3e})")
+    if lse_err > lse_tol:
+        fail(f"flash_decode decode_32k share: lse err {lse_err} > {lse_tol}")
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    b, by = bound_ms(2 * kc.numel() * 2 + q.numel() * 2 + out.numel() * 4
+                     + lse.numel() * 4,
+                     4 * sh["batch"] * sh["heads"] * sh["slots"] * sh["dh"])
+    ms = time_ms(kernel)
+    plain = time_ms(lambda: decode_partial_ref(q, kc, vc, cl, **kw))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kt, vt, enable_gqa=True))
+    record("flash_decode", "decode_32k rank share q (8,32,128) over "
+           "(8,2048,8,128) at kv_offset 2048", err, tol, ms, plain, lib, b,
+           by)
+    errs.append(err)
+    return errs, dict(
+        shape=[list(q.shape), list(kc.shape)], kv_offset=sh["kv_offset"],
+        lmax=sh["lmax"], max_abs_err=err, lse_max_abs_err=lse_err,
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by)
+
+
 def check_kernel_grads() -> dict:
     """Phase 2's gradient check: each op's backward against autograd
     through the plain version itself, both on the card, at the serve
@@ -1082,12 +1245,12 @@ def expected_launches(cfg, steps: int) -> dict:
     one flash attention an attention layer, per decode step one flash
     decode an attention layer; per prefill and per decode step one RG-LRU
     scan a recurrent layer (``cfg.block_kind`` names each layer's kind); no
-    backward."""
+    backward, and no partial decode (the card is a mesh of model 1)."""
     n = cfg.n_layers
     n_attn = sum(cfg.block_kind(i) == "attn" for i in range(n))
     norms = 2 * n + 1 + (2 * n_attn if cfg.qk_norm else 0)
     return {"rmsnorm": (1 + steps) * norms, "flash_attention": n_attn,
-            "flash_decode": steps * n_attn,
+            "flash_decode": steps * n_attn, "flash_decode_partial": 0,
             "rglru": (1 + steps) * (n - n_attn), "rglru_bwd": 0}
 
 
@@ -1353,53 +1516,59 @@ def profile_serve(res, steps: int = 4) -> dict:
 # 4x2 ``cuda`` mesh.  A ``cuda`` mesh's shard-to-shard redistribution is
 # DTensor's own ``_dtensor.shard_dim_alltoall`` (a CPU mesh issues
 # all-gather + chunk instead): an interceptor that misses it drops every
-# all-to-all here.
+# all-to-all here.  The cache is sequence-sharded (``kv_seq``): prefill
+# reshards each layer's filled cache from kv heads to sequence shards (two
+# all-to-alls a layer where kv heads divide ``model``), decode gathers q, k
+# and v to all heads (three all-gathers a layer where they were
+# head-sharded) and merges the shards' partials with two all-reduces a
+# layer; a split head (MQA's one kv head) is gathered before its rotary
+# embedding.
 MONITOR_CALLS = {
     "qwen3_8b": {
-        ("prefill", "all-to-all"): 218, ("prefill", "all-gather"): 109,
+        ("prefill", "all-to-all"): 290, ("prefill", "all-gather"): 109,
         ("prefill", "reduce-scatter"): 181, ("prefill", "all-reduce"): 73,
-        ("decode", "all-to-all"): 218, ("decode", "all-gather"): 109,
-        ("decode", "reduce-scatter"): 145, ("decode", "all-reduce"): 73,
+        ("decode", "all-to-all"): 218, ("decode", "all-gather"): 217,
+        ("decode", "reduce-scatter"): 145, ("decode", "all-reduce"): 145,
     },
     "recurrentgemma_2b": {
-        ("prefill", "all-to-all"): 140, ("prefill", "all-gather"): 111,
+        ("prefill", "all-to-all"): 124, ("prefill", "all-gather"): 111,
         ("prefill", "reduce-scatter"): 89, ("prefill", "all-reduce"): 71,
         ("decode", "all-to-all"): 140, ("decode", "all-gather"): 103,
-        ("decode", "reduce-scatter"): 105, ("decode", "all-reduce"): 71,
+        ("decode", "reduce-scatter"): 105, ("decode", "all-reduce"): 87,
     },
     # the transformer-backbone configs: MHA (CodeQwen), a vocab the model
     # axis does not divide (Granite-3-2B: whole logits, no vocab shards),
     # MQA's replicated kv head (Granite-20B), embeddings inputs (Chameleon,
     # MusicGen: no token lookup)
     "codeqwen15_7b": {
-        ("prefill", "all-to-all"): 194, ("prefill", "all-gather"): 97,
+        ("prefill", "all-to-all"): 258, ("prefill", "all-gather"): 97,
         ("prefill", "reduce-scatter"): 193, ("prefill", "all-reduce"): 65,
-        ("decode", "all-to-all"): 194, ("decode", "all-gather"): 97,
-        ("decode", "reduce-scatter"): 129, ("decode", "all-reduce"): 65,
+        ("decode", "all-to-all"): 194, ("decode", "all-gather"): 193,
+        ("decode", "reduce-scatter"): 129, ("decode", "all-reduce"): 129,
     },
     "granite_3_2b": {
-        ("prefill", "all-to-all"): 162, ("prefill", "all-gather"): 202,
+        ("prefill", "all-to-all"): 242, ("prefill", "all-gather"): 202,
         ("prefill", "reduce-scatter"): 81, ("prefill", "all-reduce"): 80,
-        ("decode", "all-to-all"): 242, ("decode", "all-gather"): 121,
-        ("decode", "reduce-scatter"): 161, ("decode", "all-reduce"): 80,
+        ("decode", "all-to-all"): 242, ("decode", "all-gather"): 241,
+        ("decode", "reduce-scatter"): 161, ("decode", "all-reduce"): 160,
     },
     "granite_20b": {
-        ("prefill", "all-to-all"): 314, ("prefill", "all-gather"): 365,
+        ("prefill", "all-to-all"): 210, ("prefill", "all-gather"): 365,
         ("prefill", "reduce-scatter"): 105, ("prefill", "all-reduce"): 105,
         ("decode", "all-to-all"): 314, ("decode", "all-gather"): 313,
-        ("decode", "reduce-scatter"): 209, ("decode", "all-reduce"): 105,
+        ("decode", "reduce-scatter"): 209, ("decode", "all-reduce"): 209,
     },
     "chameleon_34b": {
-        ("prefill", "all-to-all"): 289, ("prefill", "all-gather"): 144,
+        ("prefill", "all-to-all"): 385, ("prefill", "all-gather"): 144,
         ("prefill", "reduce-scatter"): 241, ("prefill", "all-reduce"): 96,
-        ("decode", "all-to-all"): 289, ("decode", "all-gather"): 144,
-        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 96,
+        ("decode", "all-to-all"): 289, ("decode", "all-gather"): 288,
+        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 192,
     },
     "musicgen_medium": {
-        ("prefill", "all-to-all"): 289, ("prefill", "all-gather"): 144,
+        ("prefill", "all-to-all"): 385, ("prefill", "all-gather"): 144,
         ("prefill", "reduce-scatter"): 289, ("prefill", "all-reduce"): 96,
-        ("decode", "all-to-all"): 289, ("decode", "all-gather"): 144,
-        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 96,
+        ("decode", "all-to-all"): 289, ("decode", "all-gather"): 288,
+        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 192,
     },
 }
 
@@ -1447,9 +1616,9 @@ TRAIN_MONITOR = {
                  "all-reduce": (202, 1526735064),
                  "all-to-all": (617, 10351542272),
                  "reduce-scatter": (616, 49540497408)},
-    "recurrentgemma_2b": {"all-gather": (297, 9466556416),
+    "recurrentgemma_2b": {"all-gather": (345, 9567219712),
                           "all-reduce": (341, 1887998864),
-                          "all-to-all": (353, 3449815040),
+                          "all-to-all": (305, 3198156800),
                           "reduce-scatter": (424, 21044920320)},
 }
 
@@ -1797,7 +1966,8 @@ def expected_train_launches(cfg, tcfg) -> dict:
         counts = {"rmsnorm": r * cfg.n_layers * (2 + qk) + 1,
                   "flash_attention": r * cfg.n_layers, "rglru": 0,
                   "rglru_bwd": 0}
-    return dict({k: a * v for k, v in counts.items()}, flash_decode=0)
+    return dict({k: a * v for k, v in counts.items()}, flash_decode=0,
+                flash_decode_partial=0)
 
 
 def lm_train_flops(model, tcfg) -> float:
@@ -2098,8 +2268,8 @@ def run_lm_reduced(arch: str) -> None:
 # ``allgather-then-slice`` a gathered parameter (16 of its 17 all-gathers;
 # the 17th, the metrics gather, keeps every rank's loss)
 LINT_COUNTS = {
-    "qwen3_8b": {},
-    "recurrentgemma_2b": {},
+    "qwen3_8b": {"small-ar-bucketing": 36},
+    "recurrentgemma_2b": {"small-ar-bucketing": 8},
     "resnet": {},
     "gnmt": {"allgather-then-slice": 16},
     "paper": {},
@@ -2234,18 +2404,18 @@ CLI_SWEEP_CALLS = {
     ("gnmt", "2x2x2"): {"all-gather": 17, "all-reduce": 8},
     ("resnet", "4x2"): {"all-reduce": 17},
     ("resnet", "2x2x2"): {"all-reduce": 17},
-    ("serve", "4x2"): {"all-gather": 42, "all-reduce": 18,
-                       "all-to-all": 28, "reduce-scatter": 18},
-    ("serve", "2x2x2"): {"all-gather": 54, "all-reduce": 18,
-                         "all-to-all": 16, "reduce-scatter": 6},
+    ("serve", "4x2"): {"all-gather": 54, "all-reduce": 26,
+                       "all-to-all": 36, "reduce-scatter": 18},
+    ("serve", "2x2x2"): {"all-gather": 66, "all-reduce": 26,
+                         "all-to-all": 24, "reduce-scatter": 6},
     ("qwen3_8b", "4x2"): {"all-gather": 71, "all-reduce": 42,
                           "all-to-all": 2, "reduce-scatter": 26},
     ("qwen3_8b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
                             "all-to-all": 2, "reduce-scatter": 26},
-    ("recurrentgemma_2b", "4x2"): {"all-gather": 103, "all-reduce": 110,
-                                   "all-to-all": 14, "reduce-scatter": 50},
-    ("recurrentgemma_2b", "2x2x2"): {"all-gather": 103, "all-reduce": 144,
-                                     "all-to-all": 14, "reduce-scatter": 50},
+    ("recurrentgemma_2b", "4x2"): {"all-gather": 115, "all-reduce": 110,
+                                   "all-to-all": 2, "reduce-scatter": 50},
+    ("recurrentgemma_2b", "2x2x2"): {"all-gather": 115, "all-reduce": 144,
+                                     "all-to-all": 2, "reduce-scatter": 50},
     ("codeqwen15_7b", "4x2"): {"all-gather": 71, "all-reduce": 42,
                                "all-to-all": 2, "reduce-scatter": 26},
     ("codeqwen15_7b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
@@ -2254,10 +2424,10 @@ CLI_SWEEP_CALLS = {
                               "all-to-all": 2, "reduce-scatter": 26},
     ("granite_3_2b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
                                 "all-to-all": 2, "reduce-scatter": 26},
-    ("granite_20b", "4x2"): {"all-gather": 71, "all-reduce": 42,
-                             "all-to-all": 26, "reduce-scatter": 26},
-    ("granite_20b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
-                               "all-to-all": 26, "reduce-scatter": 26},
+    ("granite_20b", "4x2"): {"all-gather": 95, "all-reduce": 42,
+                             "all-to-all": 2, "reduce-scatter": 26},
+    ("granite_20b", "2x2x2"): {"all-gather": 95, "all-reduce": 68,
+                               "all-to-all": 2, "reduce-scatter": 26},
     ("chameleon_34b", "4x2"): {"all-gather": 69, "all-reduce": 41,
                                "reduce-scatter": 25},
     ("chameleon_34b", "2x2x2"): {"all-gather": 69, "all-reduce": 66,
@@ -2290,6 +2460,85 @@ def cli(*args: str, expect: int = 0) -> str:
         fail(f"`python -m repro_torch {' '.join(args)}` exited "
              f"{proc.returncode}, expected {expect}")
     return proc.stdout
+
+
+# the dry-run phase: ``python -m repro_torch dryrun`` invocations, run side
+# by side (each its own fake process group of 256 or 512 ``cuda`` ranks),
+# (archs, shape, mesh): every ported architecture's decode_32k on both
+# production meshes, RecurrentGemma-2B's long_500k (through ``--mesh
+# both``), and Qwen3-8B's prefill_32k and train_4k on the single pod
+def dryrun_runs() -> tuple:
+    from repro_torch import configs
+
+    return ((configs.ARCH_IDS, "decode_32k", "single"),
+            (configs.ARCH_IDS, "decode_32k", "multi"),
+            (("recurrentgemma_2b",), "long_500k", "both"),
+            (("qwen3_8b",), "prefill_32k", "single"),
+            (("qwen3_8b",), "train_4k", "single"))
+
+
+def run_dryrun() -> dict:
+    """The dry-run phase: each of :func:`dryrun_runs` as ``python -m
+    repro_torch dryrun`` in its own process, all started together, writing
+    under ``build/dryrun``.  Every cell must be ``ok``; a decode cell's
+    cache bytes per device (its ``alias_bytes``: the cache the step updates
+    in place) must equal ``dryrun.cache_bytes_per_device``; each cell's
+    trace seconds and ``memory.total_bytes`` are printed.  Returns
+    ``{"arch shape mesh": (trace_s, total_bytes, alias_bytes)}``."""
+    import os
+
+    from repro_torch import configs
+    from repro_torch.launch.dryrun import cache_bytes_per_device
+    from repro_torch.launch.mesh import production_layout
+    from repro_torch.models.common import SHAPES_BY_NAME
+
+    out = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    for archs, shape, mesh in dryrun_runs():
+        args = ["dryrun", "--arch", ",".join(archs), "--shape", shape,
+                "--mesh", mesh, "--out", str(out)]
+        procs.append((args, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch", *args], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for args, proc in procs:
+        text, _ = proc.communicate()
+        log(f"[dryrun] python -m repro_torch {' '.join(args)}: exit "
+            f"{proc.returncode} at {time.perf_counter() - t0:.1f} s")
+        for line in text.splitlines():
+            if line.startswith(("[dryrun]", "  ok:", "  FAIL", "meshes")):
+                log(f"[dryrun]   {line.strip()}")
+        if proc.returncode != 0:
+            log(text[-6000:])
+            fail(f"`python -m repro_torch {' '.join(args)}` exited "
+                 f"{proc.returncode}")
+    cells = {}
+    for arch, shape, mesh in (
+            (a, shape, m) for archs, shape, mesh in dryrun_runs()
+            for a in archs
+            for m in (("single", "multi") if mesh == "both" else (mesh,))):
+        r = json.loads((out / f"{arch}_{shape}_{mesh}.json").read_text())
+        mem = r["memory"]
+        log(f"[dryrun] {arch} {shape} {mesh} ({r['devices']} ranks): ok "
+            f"{r['ok']}, trace {r['trace_s']:.2f} s, total "
+            f"{mem['total_bytes'] / 1e9:.3f} GB a device (arguments "
+            f"{mem['argument_bytes'] / 1e9:.3f}, temp "
+            f"{mem['temp_bytes'] / 1e9:.3f}, updated in place "
+            f"{mem['alias_bytes'] / 1e9:.4f})"
+            f", dominant {r['roofline']['dominant']}")
+        if not r["ok"]:
+            fail(f"dry run {arch} {shape} {mesh} not ok")
+        if SHAPES_BY_NAME[shape].kind == "decode":
+            want = cache_bytes_per_device(
+                configs.config(arch), SHAPES_BY_NAME[shape],
+                *production_layout(mesh == "multi"))
+            if mem["alias_bytes"] != want:
+                fail(f"dry run {arch} {shape} {mesh}: cache "
+                     f"{mem['alias_bytes']} B a device != {want}")
+        cells[f"{arch} {shape} {mesh}"] = (r["trace_s"], mem["total_bytes"],
+                                           mem["alias_bytes"])
+    return cells
 
 
 def _sweep_counts(out: str) -> tuple[int, int, int]:
@@ -2531,6 +2780,9 @@ def main() -> None:
     t0 = time.perf_counter()
     run_cli(reports, traces, prefill)
     seconds["cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dry = run_dryrun()
+    seconds["dryrun"] = time.perf_counter() - t0
 
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
@@ -2548,6 +2800,13 @@ def main() -> None:
                                           "library_ms")},
          **{k: kernels[name][k] for k in ("max_rel_err",)
             if k in kernels[name]},
+         **({"kv_seq": dict(
+             kernels[name]["kv_seq"],
+             launches=sum(c["flash_decode_partial"]
+                          for c in by_arch.values()),
+             launches_by_arch={a: c["flash_decode_partial"]
+                               for a, c in by_arch.items()})}
+            if "kv_seq" in kernels[name] else {}),
          "grad_max_abs_err": grad_errs[name]}
         for name in KERNEL_META],
         "serve": served,
@@ -2555,6 +2814,9 @@ def main() -> None:
             "median_step_ms", "tokens_per_s", "max_memory_gib", "busy_ms",
             "bwd_step_ms", "bwd_ms", "bwd_share", "tflop", "bound_ms")}
             for a, r in lm.items()},
+        "dryrun": {k: {"trace_s": round(t, 3), "total_bytes": tot,
+                       "alias_bytes": alias}
+                   for k, (t, tot, alias) in dry.items()},
         "phase_seconds": {k: round(v, 3) for k, v in seconds.items()}}
     log(json.dumps(line))
     log(gpu_name_and_limit())

@@ -18,7 +18,9 @@ Subcommands:
 * ``report``   -- re-export a saved report (``CommReport.save``, a cache
   entry or a sweep document of either package) without recapture;
 * ``configs``  -- list the sweepable configs;
-* ``cache``    -- inspect or clear the port's on-disk report cache.
+* ``cache``    -- inspect or clear the port's on-disk report cache;
+* ``dryrun``   -- the production-mesh dry run
+  (:mod:`repro_torch.launch.dryrun`; every argument is forwarded to it).
 
 Exit codes are the reference's: 0 done, 1 a failed cell or a ``--fail-on``
 threshold reached, 2 a usage error (unknown config, algorithm, mesh,
@@ -30,8 +32,7 @@ unless ``--device cpu`` is passed; a ``cuda`` capture needs a CUDA device,
 and there is no quiet fallback.  The reference's ``--devices`` (an XLA flag
 that forces host devices) has no meaning here: the mesh's ranks are the
 fake process group's.  The reference's ``bench`` (the paper-table
-benchmarks) and ``dryrun`` (the production-mesh lowering of
-``launch/dryrun.py``) subcommands are not ported and not offered.
+benchmarks) is not ported and not offered.
 """
 from __future__ import annotations
 
@@ -398,6 +399,11 @@ def _cmd_report(args) -> int:
     return 0
 
 
+def _cmd_dryrun(args) -> int:
+    from repro_torch.launch import dryrun
+    return dryrun.main(args.rest)
+
+
 def _cmd_configs(args) -> int:
     from repro_torch import sweep as sweep_mod
     from repro_torch.core.reporter import format_table
@@ -581,13 +587,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clear", action="store_true")
     _add_cache_opts(p)
     p.set_defaults(func=_cmd_cache)
+
+    p = sub.add_parser("dryrun", add_help=False,
+                       help="production-mesh dry run (all arguments "
+                            "forwarded to repro_torch.launch.dryrun)")
+    p.set_defaults(func=_cmd_dryrun, rest=[])
     return ap
 
 
 def main(argv=None) -> int:
     parser = build_parser()
+    # dryrun forwards everything (its --flags too) to
+    # repro_torch.launch.dryrun's own parser
     args, extra = parser.parse_known_args(argv)
-    if args.func is _cmd_monitor and args.target.endswith(".py"):
+    if args.func is _cmd_dryrun:
+        args.rest = extra
+    elif args.func is _cmd_monitor and args.target.endswith(".py"):
         args.script_args = extra     # forwarded to the script's own argv
     elif extra:
         parser.error(f"unrecognized arguments: {' '.join(extra)}")

@@ -90,6 +90,17 @@ def flash_decode_flop(q_shape, k_shape, v_shape, len_shape=None, window=0,
     return 4 * b * h * k_shape[1] * dh
 
 
+@register_flop_formula(torch.ops.repro_torch.flash_decode_partial)
+def flash_decode_partial_flop(q_shape, k_shape, v_shape, len_shape=None,
+                              kv_offset=0, lmax=0, window=0, *args,
+                              out_shape=None, **kwargs) -> int:
+    """``4·B·H·L_local·dh`` over the shard's ``L_local`` slots: the shards'
+    sum is :func:`flash_decode_flop` of the whole cache (the log-sum-exp
+    merge holds no dot)."""
+    b, h, dh = q_shape
+    return 4 * b * h * k_shape[1] * dh
+
+
 @register_flop_formula([torch.ops.repro_torch.rmsnorm,
                         torch.ops.repro_torch.rglru_scan,
                         torch.ops.repro_torch.rglru_scan_bwd])
@@ -198,4 +209,5 @@ class OpCostMode(TorchDispatchMode):
 
 
 __all__ = ["OpCostMode", "OpCounter", "Q_CHUNK", "flash_attention_flop",
-           "flash_decode_flop", "in_sharding_propagation"]
+           "flash_decode_flop", "flash_decode_partial_flop",
+           "in_sharding_propagation"]

@@ -44,7 +44,7 @@ SIGNATURES = {
         "repro_flash_attention_attrs": [_I, _I, _P],
     },
     "flash_decode": {
-        "repro_flash_decode": [_P] * 6 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+        "repro_flash_decode": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],
         "repro_flash_decode_attrs": [_I, _I, _P],
     },
     "rglru": {

@@ -49,6 +49,15 @@
 //     is launched as a programmatic dependent of the split kernel, so its
 //     launch overlaps the split kernel's run.
 // Both kernels launch from `repro_flash_decode`, one call from Python.
+//
+// A sequence shard of the cache (the reference's `kv_seq` layout: rank r of
+// the model axis holds slots [kv_offset, kv_offset + L_local)) is decoded by
+// the same two kernels: the live range is worked out in global slots, against
+// the global lmax, and clipped to the shard; the combine then also writes
+// each head's fp32 log-sum-exp (natural log, -inf where the shard holds no
+// live key) and an fp32 output normalised over the shard's keys, which the
+// ranks merge by log-sum-exp.  With kv_offset 0, lmax = L_local and no lse,
+// the launch is the unsharded one.
 #include "mma.cuh"
 
 namespace {
@@ -101,13 +110,19 @@ size_t split_smem_bytes(int g_heads, int dh) {
              sizeof(float);
 }
 
-// The keys [lo, hi) of split s: the s-th of nsplit equal chunks of the live
-// range, each rounded up to a multiple of 16 keys (empty when lo >= hi).
-__device__ __forceinline__ void split_range(int raw_len, int lmax, int window,
+// The keys [lo, hi) of split s, in the shard's slots: the s-th of nsplit
+// equal chunks of the live range, each rounded up to a multiple of 16 keys
+// (empty when lo >= hi).  The live range is [max(0, raw_len - window) if
+// window else 0, min(raw_len, lglob)) in global slots, clipped to the shard
+// [kv_offset, kv_offset + lmax).
+__device__ __forceinline__ void split_range(int raw_len, int lmax, int lglob,
+                                            int kv_offset, int window,
                                             int nsplit, int s, int* lo,
                                             int* hi) {
-  const int live_hi = min(raw_len, lmax);
-  const int live_lo = window > 0 ? max(0, raw_len - window) : 0;
+  const int live_hi =
+      min(min(raw_len, lglob), kv_offset + lmax) - kv_offset;
+  const int live_lo =
+      max(window > 0 ? max(0, raw_len - window) : 0, kv_offset) - kv_offset;
   const int n = max(0, live_hi - live_lo);
   const int chunk = ((n + nsplit - 1) / nsplit + 15) / 16 * 16;
   *lo = live_lo + s * chunk;
@@ -121,9 +136,9 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
                           const int* __restrict__ cache_len,
                           float* __restrict__ part_acc,
                           float* __restrict__ part_m,
-                          float* __restrict__ part_l, int lmax, int nh,
-                          int nkvh, int dh, float scale, int window,
-                          int nsplit, int hblocks) {
+                          float* __restrict__ part_l, int lmax, int lglob,
+                          int kv_offset, int nh, int nkvh, int dh,
+                          float scale, int window, int nsplit, int hblocks) {
   constexpr int VEC = vec_of<TKV>();
   const int g_heads = nh / (nkvh * hblocks);  // this CTA's query heads
   const int dhp = (dh + VEC - 1) / VEC * VEC;
@@ -152,7 +167,8 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
   grid_launch_dependents();  // the combine may be scheduled meanwhile
 
   int lo, hi;
-  split_range(*cache_len, lmax, window, nsplit, s, &lo, &hi);
+  split_range(*cache_len, lmax, lglob, kv_offset, window, nsplit, s, &lo,
+              &hi);
   if (lo >= hi) {
     for (int idx = tid; idx < n_out; idx += THREADS) acc_out[idx] = 0.f;
     for (int g = tid; g < g_heads; g += THREADS) {
@@ -428,14 +444,16 @@ flash_decode_split_kernel(const TQ* __restrict__ q, const TKV* __restrict__ k,
 // The splits' log-sum-exp combine for a (b, kv head, head block) group: a
 // CTA takes COMBINE_X outputs, and its COMBINE_Y rows of threads take every
 // COMBINE_Y-th split each, so a thread's loads are few and the CTAs many;
-// the rows' partial sums meet in shared memory, added in row order.
-template <typename TQ>
+// the rows' partial sums meet in shared memory, added in row order.  With
+// `lse` given, the thread of each head's column 0 writes the head's natural
+// log-sum-exp, (M + log2 l) ln 2, or -inf where no split held a live key.
+template <typename TO>
 __global__ void __launch_bounds__(COMBINE_X * COMBINE_Y)
 flash_decode_combine_kernel(const float* __restrict__ part_acc,
                             const float* __restrict__ part_m,
                             const float* __restrict__ part_l,
-                            TQ* __restrict__ o, int g_heads, int dh,
-                            int nsplit) {
+                            TO* __restrict__ o, float* __restrict__ lse,
+                            int g_heads, int dh, int nsplit) {
   __shared__ float red_l[COMBINE_Y][COMBINE_X], red_a[COMBINE_Y][COMBINE_X];
   const int n_out = g_heads * dh;
   const int bk = blockIdx.x;
@@ -445,12 +463,11 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
   const int g = live ? idx / dh : 0;
   const size_t part0 = (size_t)bk * nsplit;
   grid_dependency_wait();  // the split kernel has finished
-  float l = 0.f, a = 0.f;
+  float l = 0.f, a = 0.f, mx = NEG_INF_F;
   if (live) {
     const float* pm = part_m + part0 * g_heads + g;
     const float* pl = part_l + part0 * g_heads + g;
     const float* pa = part_acc + part0 * n_out + idx;
-    float mx = NEG_INF_F;
 #pragma unroll 8
     for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pm[(size_t)s * g_heads]);
 #pragma unroll 4
@@ -469,15 +486,18 @@ flash_decode_combine_kernel(const float* __restrict__ part_acc,
       l += red_l[r][x];
       a += red_a[r][x];
     }
-    o[(size_t)bk * n_out + idx] = from_f<TQ>(a / fmaxf(l, 1e-30f));
+    o[(size_t)bk * n_out + idx] = from_f<TO>(a / fmaxf(l, 1e-30f));
+    if (lse != nullptr && idx == g * dh)
+      lse[(size_t)bk * g_heads + g] =
+          l > 0.f ? (mx + log2f(l)) * 0.6931471805599453f : -INFINITY;
   }
 }
 
 template <typename TQ, typename TKV>
 int launch(const void* q, const void* k, const void* v, const int* clen,
-           void* o, float* scratch, int b, int lmax, int nh, int nkvh,
-           int dh, float scale, int window, int nsplit, int hblocks,
-           cudaStream_t stream) {
+           void* o, float* lse, float* scratch, int b, int lmax, int lglob,
+           int kv_offset, int nh, int nkvh, int dh, float scale, int window,
+           int nsplit, int hblocks, cudaStream_t stream) {
   const int g = nh / (nkvh * hblocks);   // query heads a CTA
   const int groups = b * nkvh * hblocks;
   const size_t n_out = (size_t)g * dh;
@@ -492,7 +512,8 @@ int launch(const void* q, const void* k, const void* v, const int* clen,
   if (err != cudaSuccess) return (int)err;
   kern<<<dim3(groups, nsplit), THREADS, smem, stream>>>(
       (const TQ*)q, (const TKV*)k, (const TKV*)v, clen, part_acc, part_m,
-      part_l, lmax, nh, nkvh, dh, scale, window, nsplit, hblocks);
+      part_l, lmax, lglob, kv_offset, nh, nkvh, dh, scale, window, nsplit,
+      hblocks);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the combine is launched as a programmatic dependent of the split
@@ -508,29 +529,39 @@ int launch(const void* q, const void* k, const void* v, const int* clen,
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  // a shard's partial (lse asked for) is written in fp32 for the merge
+  if (lse != nullptr)
+    return (int)cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<float>,
+                                   (const float*)part_acc,
+                                   (const float*)part_m,
+                                   (const float*)part_l, (float*)o, lse, g,
+                                   dh, nsplit);
   return (int)cudaLaunchKernelEx(&cfg, flash_decode_combine_kernel<TQ>,
                                  (const float*)part_acc,
                                  (const float*)part_m,
-                                 (const float*)part_l, (TQ*)o, g, dh,
+                                 (const float*)part_l, (TQ*)o, lse, g, dh,
                                  nsplit);
 }
 
 template <typename TQ>
 int dispatch_kv(const void* q, const void* k, const void* v, const int* clen,
-                void* o, float* scratch, int b, int lmax, int nh, int nkvh,
-                int dh, float scale, int window, int nsplit, int hblocks,
+                void* o, float* lse, float* scratch, int b, int lmax,
+                int lglob, int kv_offset, int nh, int nkvh, int dh,
+                float scale, int window, int nsplit, int hblocks,
                 int kv_dtype, cudaStream_t s) {
   switch (kv_dtype) {
     case kF32:
-      return launch<TQ, float>(q, k, v, clen, o, scratch, b, lmax, nh, nkvh,
-                               dh, scale, window, nsplit, hblocks, s);
+      return launch<TQ, float>(q, k, v, clen, o, lse, scratch, b, lmax,
+                               lglob, kv_offset, nh, nkvh, dh, scale, window,
+                               nsplit, hblocks, s);
     case kBF16:
-      return launch<TQ, __nv_bfloat16>(q, k, v, clen, o, scratch, b, lmax, nh,
-                                       nkvh, dh, scale, window, nsplit,
-                                       hblocks, s);
+      return launch<TQ, __nv_bfloat16>(q, k, v, clen, o, lse, scratch, b,
+                                       lmax, lglob, kv_offset, nh, nkvh, dh,
+                                       scale, window, nsplit, hblocks, s);
     case kF16:
-      return launch<TQ, __half>(q, k, v, clen, o, scratch, b, lmax, nh, nkvh,
-                                dh, scale, window, nsplit, hblocks, s);
+      return launch<TQ, __half>(q, k, v, clen, o, lse, scratch, b, lmax,
+                                lglob, kv_offset, nh, nkvh, dh, scale, window,
+                                nsplit, hblocks, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -563,32 +594,38 @@ int both_attrs(int kv_dtype, int* out) {
 // scratch: fp32, b * nkvh * nsplit * (G * dh + 2 * G) elements (the splits'
 // acc, then m, then l).  hblocks: the blocks of heads a kv head's group of
 // G = nh / nkvh query heads is cut into, a divisor of G with
-// G / hblocks * dh <= 2560.
+// G / hblocks * dh <= 2560.  k/v hold lmax slots, global slots
+// [kv_offset, kv_offset + lmax) of a cache of lglob; lse (nullable): fp32
+// (b, nh), and then o is fp32.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  const void* cache_len, void* o,
-                                  void* scratch, int b, int lmax, int nh,
-                                  int nkvh, int dh, float scale, int window,
-                                  int nsplit, int hblocks, int q_dtype,
-                                  int kv_dtype, void* stream) {
+                                  const void* cache_len, void* o, void* lse,
+                                  void* scratch, int b, int lmax, int lglob,
+                                  int kv_offset, int nh, int nkvh, int dh,
+                                  float scale, int window, int nsplit,
+                                  int hblocks, int q_dtype, int kv_dtype,
+                                  void* stream) {
   const int g = nh / nkvh;
   if (nsplit < 1 || hblocks < 1 || g % hblocks != 0 ||
-      g / hblocks * dh > NACC * THREADS)
+      g / hblocks * dh > NACC * THREADS || kv_offset < 0 ||
+      kv_offset + lmax > lglob)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const int* clen = (const int*)cache_len;
   float* part = (float*)scratch;
+  float* ls = (float*)lse;
   switch (q_dtype) {
     case kF32:
-      return dispatch_kv<float>(q, k, v, clen, o, part, b, lmax, nh, nkvh, dh,
-                                scale, window, nsplit, hblocks, kv_dtype, s);
+      return dispatch_kv<float>(q, k, v, clen, o, ls, part, b, lmax, lglob,
+                                kv_offset, nh, nkvh, dh, scale, window,
+                                nsplit, hblocks, kv_dtype, s);
     case kBF16:
-      return dispatch_kv<__nv_bfloat16>(q, k, v, clen, o, part, b, lmax, nh,
-                                        nkvh, dh, scale, window, nsplit,
-                                        hblocks, kv_dtype, s);
+      return dispatch_kv<__nv_bfloat16>(q, k, v, clen, o, ls, part, b, lmax,
+                                        lglob, kv_offset, nh, nkvh, dh, scale,
+                                        window, nsplit, hblocks, kv_dtype, s);
     case kF16:
-      return dispatch_kv<__half>(q, k, v, clen, o, part, b, lmax, nh, nkvh,
-                                 dh, scale, window, nsplit, hblocks, kv_dtype,
-                                 s);
+      return dispatch_kv<__half>(q, k, v, clen, o, ls, part, b, lmax, lglob,
+                                 kv_offset, nh, nkvh, dh, scale, window,
+                                 nsplit, hblocks, kv_dtype, s);
   }
   return (int)cudaErrorInvalidValue;
 }

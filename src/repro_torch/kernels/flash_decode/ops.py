@@ -1,22 +1,28 @@
-"""Decode-attention wrapper: the CUDA kernels of ``csrc/flash_decode.cu``
+"""Decode-attention wrappers: the CUDA kernels of ``csrc/flash_decode.cu``
 (split-K: a split kernel and a combine, one C call) for CUDA tensors, the
-plain version (:func:`.ref.decode_ref`) for CPU tensors.
+plain versions for CPU tensors.  :func:`decode_attend` decodes a whole
+cache (:func:`.ref.decode_ref`); :func:`decode_attend_partial` one sequence
+shard of it, returning the fp32 partial and its log-sum-exp for a merge
+across the shards (:func:`.ref.decode_partial_ref`, :func:`.ref.lse_combine`).
 
 ``cache_len`` stays a device tensor: the kernels read it, the host never
 does; the number of splits comes from the shapes and the card alone
-(:func:`num_splits`).  ``launches`` counts calls that launched the kernels
-(only the CUDA branch adds to it).  The backward recomputes through the
+(:func:`num_splits`).  ``launches`` counts the whole-cache op's launches
+and ``partial_launches`` the partial op's (only the CUDA branches add to
+them).  The backward recomputes through the
 plain version (:func:`.ref.decode_bwd`) on either device; ``cache_len``
-takes no gradient.
+takes no gradient.  No path differentiates a sharded decode: the partial
+op refuses a backward.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import build
-from .ref import decode_bwd, decode_ref
+from .ref import decode_bwd, decode_partial_ref, decode_ref
 
 launches = 0
+partial_launches = 0
 MAX_GROUP_WIDTH = 2560      # outputs per CTA, heads x dh (csrc NACC * THREADS)
 SPLIT_KEYS = 16             # a split's chunk is a multiple of 16 keys
 
@@ -49,11 +55,17 @@ def splits_for(q: torch.Tensor, k_cache: torch.Tensor) -> int:
                       build.sm_count(q.device.index))
 
 
-def _launch(q, k_cache, v_cache, cache_len, window: int):
-    global launches
+def _launch(q, k_cache, v_cache, cache_len, window: int,
+            kv_offset: int = 0, lmax=None, lse=None):
+    """Both kernels, one C call; ``lse`` (fp32 (B,H), or None) asks for the
+    shard's partial, and then ``o`` is fp32.  ``k_cache`` holds global
+    slots ``[kv_offset, kv_offset + L)`` of a cache of ``lmax`` (default
+    ``L``)."""
+    global launches, partial_launches
     b, h, dh = q.shape
-    _, lmax, kvh, _ = k_cache.shape
-    o = torch.empty_like(q)
+    _, l_loc, kvh, _ = k_cache.shape
+    o = torch.empty_like(q, dtype=torch.float32 if lse is not None
+                         else q.dtype)
     if o.numel() == 0:
         return o
     fn = build.library("flash_decode").repro_flash_decode
@@ -62,12 +74,17 @@ def _launch(q, k_cache, v_cache, cache_len, window: int):
     scratch = torch.empty(b * kvh * nsplit * (g * dh + 2 * g),
                           dtype=torch.float32, device=q.device)
     err = fn(build.ptr(q), build.ptr(k_cache), build.ptr(v_cache),
-             build.ptr(cache_len), build.ptr(o), build.ptr(scratch), b, lmax,
-             h, kvh, dh, dh ** -0.5, window, nsplit, head_blocks(g, dh),
+             build.ptr(cache_len), build.ptr(o),
+             None if lse is None else build.ptr(lse), build.ptr(scratch), b,
+             l_loc, l_loc if lmax is None else lmax, kv_offset, h, kvh, dh,
+             dh ** -0.5, window, nsplit, head_blocks(g, dh),
              build.DTYPE_CODES[q.dtype], build.DTYPE_CODES[k_cache.dtype],
              build.stream_of(q))
     build.check("flash_decode", err)
-    launches += 1
+    if lse is None:
+        launches += 1
+    else:
+        partial_launches += 1
     return o
 
 
@@ -101,11 +118,38 @@ def _backward(ctx, do):
 _flash_decode.register_autograd(_backward, setup_context=_setup)
 
 
-def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
-                  v_cache: torch.Tensor, cache_len: torch.Tensor, *,
-                  window: int = 0) -> torch.Tensor:
-    """q: (B,H,dh); k/v: (B,L,KVH,dh); cache_len: int32 scalar tensor on
-    q's device -> (B,H,dh)."""
+@torch.library.custom_op("repro_torch::flash_decode_partial", mutates_args=())
+def _flash_decode_partial(q: torch.Tensor, k_shard: torch.Tensor,
+                          v_shard: torch.Tensor, cache_len: torch.Tensor,
+                          kv_offset: int, lmax: int,
+                          window: int) -> tuple[torch.Tensor, torch.Tensor]:
+    if q.device.type == "cpu":
+        return decode_partial_ref(q, k_shard, v_shard, cache_len,
+                                  kv_offset=kv_offset, lmax=lmax,
+                                  window=window)
+    lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    return _launch(q, k_shard, v_shard, cache_len, window, kv_offset, lmax,
+                   lse), lse
+
+
+@_flash_decode_partial.register_fake
+def _(q, k_shard, v_shard, cache_len, kv_offset, lmax, window):
+    return (torch.empty_like(q, dtype=torch.float32),
+            q.new_empty(q.shape[:2], dtype=torch.float32))
+
+
+def _partial_backward(ctx, do, dlse):
+    raise RuntimeError(
+        "repro_torch::flash_decode_partial has no gradient: no path "
+        "differentiates a sequence-sharded decode")
+
+
+_flash_decode_partial.register_autograd(_partial_backward)
+
+
+def _check(q, k_cache, v_cache, cache_len, name: str) -> None:
+    """The checks both wrappers make (shapes, ``cache_len`` a one-element
+    int32 tensor on q's device, the kernel's dtypes and layout on CUDA)."""
     if q.dim() != 3 or k_cache.dim() != 4 or k_cache.shape != v_cache.shape:
         raise ValueError(f"bad shapes q {tuple(q.shape)} "
                          f"cache {tuple(k_cache.shape)}")
@@ -132,5 +176,31 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
                 and v_cache.is_contiguous()):
             raise ValueError("flash_decode kernel needs contiguous q/caches")
     elif q.device.type != "cpu":
-        raise ValueError(f"decode_attend runs on cuda or cpu, not {q.device}")
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+
+
+def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                  window: int = 0) -> torch.Tensor:
+    """q: (B,H,dh); k/v: (B,L,KVH,dh); cache_len: int32 scalar tensor on
+    q's device -> (B,H,dh)."""
+    _check(q, k_cache, v_cache, cache_len, "decode_attend")
     return _flash_decode(q, k_cache, v_cache, cache_len, int(window))
+
+
+def decode_attend_partial(q: torch.Tensor, k_shard: torch.Tensor,
+                          v_shard: torch.Tensor, cache_len: torch.Tensor, *,
+                          kv_offset: int, lmax: int, window: int = 0):
+    """One sequence shard of a decode: q (B,H,dh) over k/v (B,L_local,KVH,
+    dh), global slots ``[kv_offset, kv_offset + L_local)`` of a cache of
+    ``lmax`` slots, whose first ``cache_len`` are live (a ring with a
+    window of at least ``lmax`` passes window 0, as to :func:`decode_attend`).
+    Returns fp32 ``(out (B,H,dh), lse (B,H))``: the output normalised over
+    the shard's live keys and their log-sum-exp, ``lse = -inf`` and ``out =
+    0`` where the shard holds none; :func:`.ref.lse_combine` merges them."""
+    _check(q, k_shard, v_shard, cache_len, "decode_attend_partial")
+    if not 0 <= kv_offset <= lmax - k_shard.shape[1]:
+        raise ValueError(f"shard of {k_shard.shape[1]} slots at kv_offset "
+                         f"{kv_offset} does not lie in a cache of {lmax}")
+    return _flash_decode_partial(q, k_shard, v_shard, cache_len,
+                                 int(kv_offset), int(lmax), int(window))

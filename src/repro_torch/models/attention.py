@@ -10,9 +10,17 @@ Where the port differs from the reference:
 * On one card, prefill hands k/v to the kernel unexpanded (it maps query
   head ``h`` to kv head ``h // G``); the reference's ``_expand_kv`` copy
   stays on the path where the Sharder splits heads.
-* The cache is laid out by heads (:func:`kv_cache_axes`), not by sequence:
-  the decode kernel needs whole sequences per head, so the reference's
-  context-parallel ``kv_seq`` cache waits for a later slice.
+* The cache is the reference's (:func:`kv_cache_axes`): its sequence over
+  ``model`` (``kv_seq``), the first dim to claim that axis.  Where it is
+  sharded so, each rank decodes its slots with the kernel's partial
+  (:func:`~repro_torch.kernels.flash_decode.ops.decode_attend_partial`, at
+  the shard's ``kv_offset``) and the ranks merge the partials by
+  log-sum-exp: an all-reduce max of the fp32 ``lse`` over ``model``, then
+  one all-reduce sum of the rescaled output packed with its weight
+  (:func:`merge_partials`).  The reference's global-view program needs
+  neither: GSPMD partitions its einsums over the sharded cache.  The new
+  token's k/v is written only into the shard that owns its slot.  Where
+  ``model`` is 1 (one card) the decode is the unsharded kernel's.
 * Where heads do not divide the model axis and one score block is small
   (:func:`use_context_parallel`, the reference's predicate), prefill and
   training take the reference's context-parallel branch: q sharded over
@@ -235,9 +243,10 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
 
     def heads(w, n):
         t = x @ params[w].to(dt)
-        if n > 1 and n % tp:
-            # DTensor cannot unflatten a model shard that splits a head
-            # (one head, MQA, unflattens along its dh): gather it first
+        if n % tp:
+            # a model shard that splits a head is gathered first: DTensor
+            # cannot unflatten it, or (one head, MQA) unflattens it along
+            # its dh, where the rotary embedding needs both halves whole
             t = shd.constraint(t, ("batch", "seq", None))
         return t.reshape(b, s, n, dh)
 
@@ -255,8 +264,11 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
         q_off = 0
         if use_context_parallel(b, s, nh, tp, shd.dp):
             q = shd.constraint(q, CP_AXES)
-            k = shd.constraint(_expand_kv(k, nh), ("batch", None, None, None))
-            v = shd.constraint(_expand_kv(v, nh), ("batch", None, None, None))
+            # one kv head expands as a view (stride 0 over the heads),
+            # which stays a view when replicated; the kernel reads rows
+            k, v = (shd.constraint(_expand_kv(t, nh).contiguous(),
+                                   ("batch", None, None, None))
+                    for t in (k, v))
             q_ax, q_off = CP_AXES, context_parallel_offset(shd, s)
         elif tp > 1:
             nh_pad = -(-nh // tp) * tp
@@ -279,23 +291,37 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
         lmax = cache["k"].shape[1]
         ring = win > 0 and lmax <= win
         positions = pos.reshape(1, 1)
-        if kv_ax[2] is None:        # kv heads replicated: so are q heads
+        cache_ax = kv_cache_axes()["k"]
+        by_seq = tp > 1 and shd.spec(cache["k"].shape, cache_ax)[1] \
+            is not None
+        if by_seq:                  # all heads meet every sequence shard
+            q_ax = kv_ax = ("batch", "seq", None, None)
+        elif kv_ax[2] is None:      # kv heads replicated: so are q heads
             q_ax = kv_ax
         q = shd.constraint(_rope(shd, q, positions, cfg.rope_theta), q_ax)
         k = shd.constraint(_rope(shd, k, positions, cfg.rope_theta), kv_ax)
         v = shd.constraint(v, kv_ax)
-        cache_ax = kv_cache_axes()["k"]
+        # a ring is kept only with win >= L, where its age mask keeps the
+        # slots below min(pos + 1, L): the linear mask, window 0
+        dwin = 0 if ring else win
 
         def step(q_, k_, v_, kc, vc):
             slot = torch.remainder(pos, lmax) if ring else pos
-            idx = slot.reshape(1).long()
-            kc.index_copy_(1, idx, k_.to(kc.dtype))
-            vc.index_copy_(1, idx, v_.to(vc.dtype))
-            # a ring is kept only with win >= L, where its age mask keeps
-            # the slots below min(pos + 1, L): the linear mask, window 0
-            return decode_ops.decode_attend(
-                q_[:, 0].contiguous(), kc, vc, pos + 1,
-                window=0 if ring else win)[:, None]
+            if not by_seq:
+                idx = slot.reshape(1).long()
+                kc.index_copy_(1, idx, k_.to(kc.dtype))
+                vc.index_copy_(1, idx, v_.to(vc.dtype))
+                return decode_ops.decode_attend(
+                    q_[:, 0].contiguous(), kc, vc, pos + 1,
+                    window=dwin)[:, None]
+            off = shd.coordinate("model") * kc.shape[1]
+            write_owned_slot(kc, k_, slot - off)
+            write_owned_slot(vc, v_, slot - off)
+            o, lse = decode_ops.decode_attend_partial(
+                q_[:, 0].contiguous(), kc, vc, pos + 1, kv_offset=off,
+                lmax=lmax, window=dwin)
+            return merge_partials(o, lse, shd.group("model")).to(
+                q_.dtype)[:, None]
 
         out = shd.local(step, (q, k, v, cache["k"], cache["v"]),
                         (None, None, None, cache_ax, cache_ax))
@@ -312,11 +338,39 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
     return shd.constraint(out, ("batch", "seq", None)), new_cache
 
 
+def write_owned_slot(cache, new, rel):
+    """Write ``new`` (B,1,KVH,dh) into slot ``rel`` of this rank's sequence
+    shard ``cache`` (B,L_local,KVH,dh) if the shard holds it (``0 <= rel <
+    L_local``; ``rel``: an int32 device scalar, never read on the host);
+    any other shard writes its slot's own row back, bit for bit."""
+    l_loc = cache.shape[1]
+    own = (rel >= 0) & (rel < l_loc)
+    idx = rel.clamp(0, l_loc - 1).reshape(1).long()
+    row = torch.where(own, new.to(cache.dtype), cache.index_select(1, idx))
+    cache.index_copy_(1, idx, row)
+
+
+def merge_partials(out, lse, group):
+    """The log-sum-exp merge of the sequence shards' decode partials over
+    ``group`` (the ``model`` axis): out (B,H,dh) and lse (B,H), fp32.  An
+    all-reduce max of ``lse``, then one all-reduce sum of ``e^(lse - M)
+    out`` packed with ``e^(lse - M)``; a shard with no live key (``lse =
+    -inf``) weighs 0.  Returns the fp32 (B,H,dh) output."""
+    from torch.distributed import _functional_collectives as funcol
+
+    m = funcol.all_reduce(lse, "max", group)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lse - m)[..., None]
+    tot = funcol.all_reduce(torch.cat([out * w, w], dim=-1), "sum", group)
+    return tot[..., :-1] / tot[..., -1:].clamp_min(1e-30)
+
+
 def _fill_cache(shd, t, max_len: int, dtype: torch.dtype):
     """Prefill's per-layer cache: ``t`` (B,S,KVH,dh) in the cache dtype at
     positions ``[0, S)``, zeros after; with ``S >= max_len`` (a window
     ring) the last ``max_len`` positions, slot ``j`` holding position
-    ``p`` with ``p % max_len == j``."""
+    ``p`` with ``p % max_len == j``.  Filled whole along the sequence, then
+    laid out as :func:`kv_cache_axes` says."""
     s = t.shape[1]
 
     def fill(x):
@@ -325,8 +379,9 @@ def _fill_cache(shd, t, max_len: int, dtype: torch.dtype):
             return torch.roll(x[:, -max_len:], s % max_len, dims=1)
         return F.pad(x, (0, 0, 0, 0, 0, max_len - s))
 
-    return shd.local(fill, (shd.constraint(t, kv_cache_axes()["k"]),),
-                     (None,))
+    whole = shd.local(fill, (shd.constraint(t, ("batch", None, "kv_heads",
+                                                None)),), (None,))
+    return shd.constraint(whole, kv_cache_axes()["k"])
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -346,10 +401,11 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 def kv_cache_axes():
-    """Per-layer cache layout: batch over data, kv heads over model (the
-    reference shards the sequence, ``kv_seq``; see the module docstring)."""
+    """Per-layer cache layout, the reference's: batch over data, the
+    sequence over model (``kv_seq``), kv heads over model only where the
+    sequence cannot take it (the Sharder's prefix fallback)."""
     return {
-        "k": ("batch", None, "kv_heads", None),
-        "v": ("batch", None, "kv_heads", None),
+        "k": ("batch", "kv_seq", "kv_heads", None),
+        "v": ("batch", "kv_seq", "kv_heads", None),
         "len": (),
     }

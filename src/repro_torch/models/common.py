@@ -72,6 +72,41 @@ class ModelConfig:
     def block_kind(self, layer: int) -> str:
         return self.block_pattern[layer % len(self.block_pattern)]
 
+    @property
+    def n_params(self) -> float:
+        """Approximate total parameter count (embedding + blocks + head),
+        the reference's formula (the dry run's MODEL_FLOPS take it)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        dh, nh, nkv = self.dh, self.n_heads, self.n_kv_heads
+        per_block = {}
+        attn = d * nh * dh + 2 * d * nkv * dh + nh * dh * d
+        dense_mlp = 3 * d * f
+        per_block["attn"] = attn + dense_mlp
+        if self.n_experts:
+            per_block["attn"] = (attn + self.n_experts * 3 * d * f
+                                 + d * self.n_experts)
+        dr = self.d_rnn_
+        per_block["rec"] = (2 * d * dr + dr * self.conv_width + 2 * dr
+                            + dr * d) + 3 * d * f
+        di = 2 * d  # xlstm inner dim
+        per_block["mlstm"] = (2 * d * di + 3 * di * (dh * nh) // max(1, nh)
+                              + di * d)
+        per_block["slstm"] = 4 * d * d + 4 * d * d + d * d
+        total = 0.0
+        for layer in range(self.n_layers):
+            total += per_block.get(self.block_kind(layer), per_block["attn"])
+        total += v * d * (1 if self.tie_embeddings else 2)
+        return float(total)
+
+    @property
+    def n_params_active(self) -> float:
+        """Active params per token (MoE counts top_k experts only)."""
+        if not self.n_experts:
+            return self.n_params
+        d, f = self.d_model, self.d_ff
+        inactive = (self.n_experts - self.top_k) * 3 * d * f * self.n_layers
+        return self.n_params - inactive
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

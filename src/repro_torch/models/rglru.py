@@ -341,6 +341,12 @@ class GriffinLM:
         return self._cache(batch, max_len, device, dtype, torch.empty)
 
     def cache_axes(self):
+        """The cache's layout, the reference's: recurrent states by
+        :func:`rec_state_axes`, the ring kv by
+        :func:`~repro_torch.models.attention.kv_cache_axes` (its sequence
+        over model: RecurrentGemma-2B's 2048-slot ring is 128 slots a rank
+        on model 16, each rank decoding its slots and the ranks merging by
+        log-sum-exp)."""
         ra = {k: ("stack",) + ax for k, ax in rec_state_axes().items()}
         kv = attention.kv_cache_axes()
         return {

@@ -167,6 +167,10 @@ class TransformerLM:
                 "len": torch.empty((), dtype=torch.int32, device=device)}
 
     def cache_axes(self):
+        """The stacked cache's layout, the reference's: layers unsharded,
+        then :func:`~repro_torch.models.attention.kv_cache_axes` (batch
+        over data, the sequence over model: a decode_32k cache of 32768
+        slots is 2048 a rank on model 16)."""
         per_layer = attention.kv_cache_axes()
         return {"k": ("layers",) + per_layer["k"],
                 "v": ("layers",) + per_layer["v"], "len": ()}

@@ -9,8 +9,9 @@ mesh-axes product (prefix fallback otherwise), and no mesh axis is reused
 within one tensor.  The result maps to DTensor placements: ``Shard(d)`` on
 each mesh dim that a tensor dim claims, ``Replicate()`` elsewhere.
 
-With no mesh (serving on one card) every method is the identity and the
-model runs on plain tensors.  With a mesh, tensors are DTensors,
+``enable_sp`` maps ``seq`` to ``model`` (sequence parallelism), as the
+reference's does.  With no mesh (serving on one card) every method is the
+identity and the model runs on plain tensors.  With a mesh, tensors are DTensors,
 ``constraint`` is ``redistribute``, and :meth:`Sharder.local` runs a
 function -- a kernel wrapper, which has no DTensor sharding rule -- on the
 local shards.
@@ -46,9 +47,12 @@ DEFAULT_RULES: dict[str, tuple[str, ...]] = {
 class Sharder:
     """Binds logical axes to a ``DeviceMesh`` (or to nothing: one card)."""
 
-    def __init__(self, mesh=None, rules: Optional[dict] = None):
+    def __init__(self, mesh=None, rules: Optional[dict] = None,
+                 enable_sp: bool = False):
         self.mesh = mesh
         self.rules = dict(rules or DEFAULT_RULES)
+        if enable_sp:
+            self.rules["seq"] = ("model",)
         self.mesh_sizes: dict[str, int] = (
             dict(zip(mesh.mesh_dim_names, mesh.shape))
             if mesh is not None else {})
@@ -70,6 +74,19 @@ class Sharder:
     @property
     def dp(self) -> int:
         return self.logical_size("batch")
+
+    def coordinate(self, mesh_axis: str) -> int:
+        """This rank's coordinate on ``mesh_axis`` (0 without a mesh or
+        that axis)."""
+        if mesh_axis not in self.mesh_sizes:
+            return 0
+        return self.mesh.get_local_rank(mesh_axis)
+
+    def group(self, mesh_axis: str):
+        """The process group of ``mesh_axis``: the ranks that share every
+        other coordinate with this one (what a collective over that axis
+        runs on)."""
+        return self.mesh.get_group(mesh_axis)
 
     # ------------------------------------------------------------------
     def spec(self, shape: Sequence[int],

@@ -19,11 +19,19 @@ fake 4x2 mesh beside the reference's on its 4x2 host mesh.  The per-kind
 partitioners place tensors differently (ROADMAP queue 3 item 6): DTensor
 all-gathers each FSDP-sharded weight where it is used, all-reduces the
 row-parallel outputs over ``model``, reduce-scatters data-partial products
-back to batch-sharded rows, shards the cache by kv heads and unrolls the
-layers (weight 1 an op); on a CPU mesh its shard-to-shard moves are
-all-gathers and a chunk (queue 3 item 9).  GSPMD moves activations instead
-(all-to-alls, collective-permutes), shards the cache by sequence
-(``kv_seq``) and scans the layers.  Granite-3-2B also runs at its published
+back to batch-sharded rows and unrolls the layers (weight 1 an op); on a
+CPU mesh its shard-to-shard moves are all-gathers and a chunk (queue 3
+item 9).  GSPMD moves activations instead (all-to-alls,
+collective-permutes) and scans the layers.  Both shard the cache by
+sequence (``kv_seq``).  The port's prefill fills each layer's cache whole
+and reshards it from kv heads to sequence shards (an all-to-all; on a CPU
+mesh an all-gather and a chunk, 2 a layer where kv heads divide
+``model``); its decode gathers q, k and v to all heads (3 all-gathers a
+layer where they were head-sharded), decodes the rank's sequence shard
+and merges the shards' partials with two fp32 all-reduces a layer over
+``model`` (a max of the log-sum-exp, a sum of the packed output).
+Granite-20B's one kv head, which a model shard splits along its head dim,
+is gathered whole before the rotary embedding, as every split head is.  Granite-3-2B also runs at its published
 vocab of 49155 (``granite_3_2b@v49155``): the embedding and the head then
 take the Sharder's prefix fallback, replicated over ``model``, in both
 packages, so the logits are gathered whole where the other configs gather
@@ -321,50 +329,50 @@ PORT_TABLES = {
     "codeqwen15_7b": {
         "train": {"all-gather": (73, 9902080), "all-reduce": (30, 1445960),
             "reduce-scatter": (26, 1572864)},
-        "prefill": {"all-gather": (31, 1644544), "all-reduce": (9, 294912),
+        "prefill": {"all-gather": (39, 2037760), "all-reduce": (9, 294912),
             "reduce-scatter": (1, 8192)},
-        "decode": {"all-gather": (39, 106624), "all-reduce": (9, 9216),
-            "reduce-scatter": (17, 53248)},
+        "decode": {"all-gather": (51, 155776), "all-reduce": (17, 18432),
+            "reduce-scatter": (17, 65536)},
     },
     "granite_3_2b": {
         "train": {"all-gather": (73, 9902080), "all-reduce": (30, 1445960),
             "reduce-scatter": (26, 1572864)},
-        "prefill": {"all-gather": (31, 1644544), "all-reduce": (9, 294912),
+        "prefill": {"all-gather": (39, 2037760), "all-reduce": (9, 294912),
             "reduce-scatter": (1, 8192)},
-        "decode": {"all-gather": (39, 106624), "all-reduce": (9, 9216),
-            "reduce-scatter": (17, 53248)},
+        "decode": {"all-gather": (51, 155776), "all-reduce": (17, 18432),
+            "reduce-scatter": (17, 65536)},
     },
     "granite_20b": {
-        "train": {"all-gather": (97, 11376640), "all-reduce": (30, 1445960),
+        "train": {"all-gather": (97, 10590208), "all-reduce": (30, 1445960),
             "reduce-scatter": (26, 1474560)},
-        "prefill": {"all-gather": (47, 1923072), "all-reduce": (9, 294912),
+        "prefill": {"all-gather": (39, 1660928), "all-reduce": (9, 294912),
             "reduce-scatter": (1, 8192)},
-        "decode": {"all-gather": (51, 131200), "all-reduce": (9, 9216),
+        "decode": {"all-gather": (51, 131200), "all-reduce": (17, 18432),
             "reduce-scatter": (17, 53248)},
     },
     "chameleon_34b": {
         "train": {"all-gather": (69, 9633792), "all-reduce": (29, 1380424),
             "reduce-scatter": (25, 1441792)},
-        "prefill": {"all-gather": (29, 1574912), "all-reduce": (8, 262144),
+        "prefill": {"all-gather": (37, 1968128), "all-reduce": (8, 262144),
             "reduce-scatter": (1, 8192)},
-        "decode": {"all-gather": (37, 104448), "all-reduce": (8, 8192),
-            "reduce-scatter": (17, 53248)},
+        "decode": {"all-gather": (49, 129024), "all-reduce": (16, 17408),
+            "reduce-scatter": (17, 57344)},
     },
     "musicgen_medium": {
         "train": {"all-gather": (69, 9633792), "all-reduce": (29, 1380424),
             "reduce-scatter": (25, 1441792)},
-        "prefill": {"all-gather": (29, 1574912), "all-reduce": (8, 262144),
+        "prefill": {"all-gather": (37, 1968128), "all-reduce": (8, 262144),
             "reduce-scatter": (1, 8192)},
-        "decode": {"all-gather": (37, 104448), "all-reduce": (8, 8192),
-            "reduce-scatter": (17, 53248)},
+        "decode": {"all-gather": (49, 153600), "all-reduce": (16, 17408),
+            "reduce-scatter": (17, 65536)},
     },
     "granite_3_2b@v49155": {
         "train": {"all-gather": (73, 108668928), "all-reduce": (26, 13894456),
             "reduce-scatter": (27, 227816960)},
-        "prefill": {"all-gather": (32, 1675264), "all-reduce": (8, 262144),
+        "prefill": {"all-gather": (40, 2068480), "all-reduce": (8, 262144),
             "reduce-scatter": (1, 1572960)},
-        "decode": {"all-gather": (39, 106624), "all-reduce": (8, 8192),
-            "reduce-scatter": (17, 1618016)},
+        "decode": {"all-gather": (51, 155776), "all-reduce": (16, 17408),
+            "reduce-scatter": (17, 1630304)},
     },
 }
 # the reference's on its 4x2 host mesh (GSPMD)

@@ -214,7 +214,7 @@ PORT_CP = {
               "reduce-scatter": (25, 1425408)},
     "prefill": {"all-gather": (45, 1935360), "all-reduce": (8, 262144),
                 "reduce-scatter": (1, 8192)},
-    "decode": {"all-gather": (49, 140288), "all-reduce": (8, 8192),
+    "decode": {"all-gather": (49, 140288), "all-reduce": (16, 15104),
                "reduce-scatter": (17, 59392)},
 }
 REF_CP = {

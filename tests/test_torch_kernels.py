@@ -248,17 +248,21 @@ class TestWrappers:
             "rmsnorm": lambda: rn_ops._launch(x, torch.ones(8), 1e-6),
             "flash_attention": lambda: fa_ops._launch(q, kv, kv, True, 0, 0),
             "flash_decode": lambda: fd_ops._launch(q[:, 0], kv, kv, cl, 0),
+            "flash_decode_partial": lambda: fd_ops._launch(
+                q[:, 0], kv, kv, cl, 0, 4, 8, torch.empty(1, 2)),
             "rglru": lambda: rg_ops._launch(x[None], x[None], None),
             "rglru_bwd": lambda: rg_ops._launch_bwd(x[None], x[None],
                                                     x[None], None),
         }
 
     @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention",
-                                      "flash_decode", "rglru", "rglru_bwd"])
+                                      "flash_decode", "flash_decode_partial",
+                                      "rglru", "rglru_bwd"])
     def test_launch_without_toolkit_raises(self, no_toolkit, name):
         mod, attr = {"rmsnorm": (rn_ops, "launches"),
                      "flash_attention": (fa_ops, "launches"),
                      "flash_decode": (fd_ops, "launches"),
+                     "flash_decode_partial": (fd_ops, "partial_launches"),
                      "rglru": (rg_ops, "launches"),
                      "rglru_bwd": (rg_ops, "bwd_launches")}[name]
         before = getattr(mod, attr)
@@ -297,8 +301,14 @@ class TestWrappers:
         fd_ops.decode_attend(torch.ones(1, 2, 8), torch.ones(1, 4, 1, 8),
                              torch.ones(1, 4, 1, 8),
                              torch.tensor(2, dtype=torch.int32))
+        partial = fd_ops.partial_launches
+        fd_ops.decode_attend_partial(
+            torch.ones(1, 2, 8), torch.ones(1, 4, 1, 8),
+            torch.ones(1, 4, 1, 8), torch.tensor(6, dtype=torch.int32),
+            kv_offset=4, lmax=8)
         rg_ops.rglru_scan(torch.ones(1, 4, 8), torch.ones(1, 4, 8))
         assert [m.launches for m in mods] == before
+        assert fd_ops.partial_launches == partial
 
     def test_entry_point_asks_for_the_card(self, monkeypatch):
         from repro_torch.launch import serve as launch

@@ -15,9 +15,12 @@ scanned layer with an execution weight.  DTensor follows the port's
 placements op by op instead: FSDP all-gathers of each data-sharded weight at
 use, Megatron-style all-reduces of the row-parallel attention and MLP outputs
 over ``model``, all-gathers of the vocab-sharded logits, and reduce-scatters
-where a data-partial product goes back to batch-sharded rows.  The port's
-cache is sharded by heads, so no permutes appear, and an eager program
-unrolls its layers, so every op has weight 1.  The table is a CPU mesh's:
+where a data-partial product goes back to batch-sharded rows.  Both shard
+the cache by sequence (``kv_seq``): the port's prefill reshards each
+layer's filled cache from kv heads to sequence shards, and its decode
+gathers q, k and v to all heads and merges the sequence shards' partials
+with two fp32 all-reduces a layer over ``model``; no permutes appear, and
+an eager program unrolls its layers, so every op has weight 1.  The table is a CPU mesh's:
 there DTensor's shard-to-shard redistribution issues all-gather plus a
 local chunk, where on a ``cuda`` mesh (the serving entry point's default)
 it issues ``_dtensor.shard_dim_alltoall``, recorded as an all-to-all.
@@ -44,28 +47,28 @@ FIXTURE = Path(__file__).parent / "fixtures" / "serve_report.json"
 # the port's per-phase profile of the reduced serve step on a CPU 4x2 mesh:
 # (phase, kind) -> (calls, payload bytes per device)
 PINNED = {
-    ("prefill", "all-gather"): (31, 1644544),
+    ("prefill", "all-gather"): (39, 2103296),
     ("prefill", "all-reduce"): (9, 294912),
     ("prefill", "reduce-scatter"): (1, 8192),
-    ("decode", "all-gather"): (39, 106624),
-    ("decode", "all-reduce"): (9, 9216),
-    ("decode", "reduce-scatter"): (17, 53248),
+    ("decode", "all-gather"): (51, 131200),
+    ("decode", "all-reduce"): (17, 18432),
+    ("decode", "reduce-scatter"): (17, 57344),
 }
 # kinds the reference's GSPMD capture of the same step has and the port's
 # capture on a CPU mesh has not.  On a ``cuda`` mesh, the serving entry
 # point's default, the port does issue all-to-alls (DTensor's
-# shard_dim_alltoall, 218 a phase at full width): chip_smoke.py holds that
+# shard_dim_alltoall, 290 / 218 a phase at full width): chip_smoke.py holds that
 # capture's per-phase calls to its own pinned table
 GSPMD_ONLY_ON_CPU_MESH = {"all-to-all", "collective-permute"}
 
 # the same for the reduced RecurrentGemma serve step (6 layers: two
 # (rec, rec, attn) superblocks), same mesh and sizes
 PINNED_GRIFFIN = {
-    ("prefill", "all-gather"): (49, 2537472),
+    ("prefill", "all-gather"): (45, 2406400),
     ("prefill", "all-reduce"): (17, 557056),
     ("prefill", "reduce-scatter"): (9, 532480),
     ("decode", "all-gather"): (59, 161920),
-    ("decode", "all-reduce"): (17, 17408),
+    ("decode", "all-reduce"): (21, 22016),
     ("decode", "reduce-scatter"): (29, 88064),
 }
 
@@ -108,9 +111,14 @@ def test_ops_carry_mesh_groups_and_per_device_shapes():
         assert op.replica_groups == {"data": data_groups,
                                      "model": model_groups}[axis]
         # bf16 activations and weights; the int64 token ids are gathered
-        # over data where the embedding lookup meets the data-sharded table
-        assert op.result_shapes and all(s.dtype in ("bf16", "s64")
-                                        for s in op.result_shapes)
+        # over data where the embedding lookup meets the data-sharded table;
+        # the decode's log-sum-exp merge over model is fp32
+        # (batch 8 over data 4, 4 heads; the packed output 16 + 1 wide)
+        merge = (op.phase == "decode" and op.kind == "all-reduce"
+                 and op.result_shapes[0].dims in ((2, 4), (2, 4, 17)))
+        assert op.result_shapes and all(
+            s.dtype in (("f32",) if merge else ("bf16", "s64"))
+            for s in op.result_shapes)
     # prefill all-reduces over model: the vocab-sharded embedding lookup's
     # partial sums (batch 8, seq 32, d_model 64 over data 4), then per layer
     # the row-parallel attention and MLP outputs (batch 8 over data 4)
@@ -303,7 +311,7 @@ def test_griffin_decode_against_gspmd():
     * GSPMD scans the two superblocks, so each of its ops has weight 2; the
       port unrolls them (weight 1);
     * both all-reduce the row-parallel outputs over ``model``;
-    * the dense RG-LRU gate products, the only fp32 collectives in either:
+    * the dense RG-LRU gate products, the reference's only fp32 collectives:
       GSPMD all-gathers the ``rnn``-sharded conv output over ``model``,
       fuses the ``w_a`` and ``w_x`` products into one and realigns its
       split halves with collective-permutes; DTensor multiplies the shards
@@ -311,6 +319,11 @@ def test_griffin_decode_against_gspmd():
       partial product over ``model``, two per recurrent layer;
     * DTensor turns data-partial products into batch-sharded rows with
       reduce-scatters (the Qwen profile's difference, above);
+    * the port decodes each attention layer's sequence shard of the ring
+      (``kv_seq``, 16 of its 32 slots) and merges the partials with two
+      fp32 all-reduces over ``model``, a max of the (2, 4) log-sum-exp and
+      a sum of the packed (2, 4, 17) output; GSPMD's partitioned decode
+      issues none of its own here;
     * the RG-LRU scan itself issues no collective in either: it is
       elementwise over the ``rnn`` shards
       (:func:`test_rglru_scan_on_rnn_shards_issues_no_collective`).
@@ -345,12 +358,15 @@ def test_griffin_decode_against_gspmd():
     # row-parallel outputs: batch-sharded rows (8 / 4 = 2) of d_model 64
     assert ref_rows[("all-reduce", "model", (2, 1, 64), "bf16")] == 12
     assert port_rows[("all-reduce", "model", (2, 1, 64), "bf16")] == 8
-    # the RG-LRU gate products, the only fp32 collectives in either
+    # the fp32 collectives: the RG-LRU gate products in both, the port's
+    # log-sum-exp merge
     assert {k: v for k, v in ref_rows.items() if k[3] == "f32"} == {
         ("all-gather", "model", (2, 1, 64), "f32"): 4,
         ("collective-permute", "-", (2, 1, 128), "f32"): 12}
     assert {k: v for k, v in port_rows.items() if k[3] == "f32"} == {
-        ("reduce-scatter", "model", (2, 1, 32), "f32"): 8}
+        ("reduce-scatter", "model", (2, 1, 32), "f32"): 8,
+        ("all-reduce", "model", (2, 4), "f32"): 2,
+        ("all-reduce", "model", (2, 4, 17), "f32"): 2}
 
 
 def test_rglru_scan_on_rnn_shards_issues_no_collective():

@@ -40,11 +40,11 @@ CELL_TABLE = {
                         "all-reduce": (8, 13271040)},
     ("resnet", "4x2"): {"all-reduce": (17, 89746728)},
     ("resnet", "2x2x2"): {"all-reduce": (17, 89746728)},
-    ("serve", "4x2"): {"all-gather": (70, 1751168),
-                       "all-reduce": (18, 304128),
-                       "reduce-scatter": (18, 61440)},
-    ("serve", "2x2x2"): {"all-gather": (70, 2436160),
-                         "all-reduce": (18, 152064),
+    ("serve", "4x2"): {"all-gather": (90, 2168960),
+                       "all-reduce": (26, 313344),
+                       "reduce-scatter": (18, 65536)},
+    ("serve", "2x2x2"): {"all-gather": (90, 2638912),
+                         "all-reduce": (26, 156672),
                          "reduce-scatter": (6, 24576)},
 }
 

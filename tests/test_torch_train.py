@@ -362,6 +362,7 @@ class _OpCount(TorchDispatchMode):
     OPS = {"rmsnorm": "repro_torch.rmsnorm.default",
            "flash_attention": "repro_torch.flash_attention.default",
            "flash_decode": "repro_torch.flash_decode.default",
+           "flash_decode_partial": "repro_torch.flash_decode_partial.default",
            "rglru": "repro_torch.rglru_scan.default",
            "rglru_bwd": "repro_torch.rglru_scan_bwd.default"}
 

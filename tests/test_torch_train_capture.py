@@ -71,7 +71,7 @@ FIXTURE = Path(__file__).parent / "fixtures" / "translation_report.json"
 PORT_CALLS = {
     "qwen3_8b": {"all-gather": (73, 9902080), "all-reduce": (30, 1445960),
                  "reduce-scatter": (26, 1572864)},
-    "recurrentgemma_2b": {"all-gather": (117, 15292416),
+    "recurrentgemma_2b": {"all-gather": (117, 14899200),
                           "all-reduce": (72, 3021896),
                           "reduce-scatter": (50, 4210688)},
 }

@@ -13,9 +13,9 @@ import functools
 def mesh_4x2():
     """A ``(data 4, model 2)`` ``DeviceMesh`` on CPU over the fake process
     group of 8 ranks."""
-    from repro_torch.core import fake_mesh
+    from repro_torch.launch.mesh import make_test_mesh
 
-    return fake_mesh((4, 2), ("data", "model"), device="cpu")
+    return make_test_mesh()
 
 
 def ref_serve_cell(cfg):
