@@ -33,8 +33,11 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               context-parallel branch runs it (a causal S=512 problem in 4
               sequence shards, each at its ``q_offset``, against the
               unsplit kernel and the plain version); RMSNorm at widths
-              1536, 2048, 6144 and 8192 (prefill and decode rows) and
-              Chameleon-34B's 64-head qk rows.
+              1536, 2048, 5120, 6144 and 8192 (prefill and decode rows) and
+              Chameleon-34B's 64-head qk rows; the MoE configs' attention
+              (flash attention and flash decode at Grok-1's 48/8 and
+              Llama-4 Maverick's 40/8 heads of 128: query groups of 6
+              and 5).
               RG-LRU's forward and backward kernels at its serve prefill
               and decode shapes, the lm-train microbatch (1,1024,2560), a
               ragged (1,1000,2560) and a long (1,8192,2560), each with the
@@ -54,9 +57,11 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               backwards (plain formulas) none;
 3. serve   -- for each served architecture (Qwen3-8B, RecurrentGemma-2B,
               then the transformer-backbone configs CodeQwen1.5-7B,
-              Granite-3-2B, Granite-20B, Chameleon-34B and MusicGen-medium),
-              at its published width and depth, random weights from a
-              seed, cast to bf16 once: 8 requests, prompt 128, 32 new
+              Granite-3-2B, Granite-20B, Chameleon-34B and MusicGen-medium,
+              then the Mixture-of-Experts configs Grok-1 and Llama-4
+              Maverick), at its published width and depth (the MoE
+              configs' depth cut to 6 and 2 layers: ``SERVE_LAYERS``),
+              random weights from a seed, cast to bf16 once: 8 requests, prompt 128, 32 new
               tokens, timed by the serve entry point; the two configs that
               read embeddings (Chameleon, MusicGen: stubbed front ends)
               through ``model.prefill`` and 31 ``decode_step``s on bf16
@@ -68,14 +73,21 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               through the RMSNorm kernel, prefill attention through the
               flash-attention kernel, decode attention through the
               flash-decode kernel, every recurrence through the RG-LRU
-              kernel).  The first decode step's logits are held against the
-              same step with the plain versions, and torch.profiler shows
+              kernel; an MoE block launches none of the port's kernels).
+              The first decode step's logits are held against the
+              same step with the plain versions (for an MoE model the top-k
+              choices of each layer that differ between the two are
+              printed; where a flip breaks the check, the sequences whose
+              routing agrees in every layer are held, at the same
+              tolerance), and torch.profiler shows
               where one prefill's and four decode steps' device time goes,
               with the device's idle share.  Qwen3-8B's prefill is counted
               (FLOPs, bytes) for phase 8.  Each model is freed before the
               next is built (the memory resident before each build is
               printed: Chameleon-34B's 63.88 GiB of weights need the card
-              to itself);
+              to itself); an MoE model also prints its weights' bytes over
+              the HBM rate, the bound of a decode step that reads every
+              expert;
 4. train   -- for each of the paper's applications (ResNet-18, GNMT, the
               DDP microbenchmark's MLP) at the repo's paper configs' sizes,
               through ``repro_torch.launch.paper``: 10 DDP steps in fp32
@@ -111,7 +123,7 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               from the same start, and 4 steps straight against 2, a
               checkpoint, a resume and 2 more;
 5. monitor -- for each served architecture, the two-phase prefill/decode
-              capture at full width on a fake 4x2 mesh, under
+              capture at full width and depth on a fake 4x2 mesh, under
               FakeTensorMode on ``cuda``; its per-phase collective calls
               must equal a pinned table, and the report is saved, reloaded
               and compared; and, for Qwen3-8B and RecurrentGemma-2B, the
@@ -151,8 +163,8 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
 8. cli     -- the port's command line, ``python -m repro_torch``, in
               subprocesses on the card (captures on fake ``cuda`` meshes,
               a report cache under ``build/cli``): ``configs`` must list
-              the eleven sweep configs (the paper apps, serve and the
-              seven architectures' reduced train steps); ``sweep`` of every config on
+              the fourteen sweep configs (the paper apps, serve, moe-skew
+              and the nine architectures' reduced train steps); ``sweep`` of every config on
               4x2 and 2x2x2 with ring and hierarchical, by phase and
               linted, run
               twice: the cold run captures each (config, mesh) cell once,
@@ -162,7 +174,9 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               writes the JSON, CSV, HTML (one heatmap panel a phase) and
               Perfetto exports, and the JSON reloads to the cache entry's
               views; ``lint paper --mesh 2x2x2 --fail-on error`` exits 1
-              with ring and 0 with hierarchical; ``compare`` of phase 7's
+              with ring and 0 with hierarchical; ``lint moe-skew --mesh
+              4x2 --fail-on warn`` exits 1 with two ``skewed-a2a``
+              findings; ``compare`` of phase 7's
               live MLP trace against its saved capture matches every
               measured op; ``sweep --scale-curve --configs serve`` (256 and
               1024 devices) writes the reference's 13-column CSV and the
@@ -175,7 +189,9 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               must not exceed that prefill's measured device busy time;
 9. dryrun  -- ``python -m repro_torch dryrun`` in subprocesses started
               together, on fake ``cuda`` production meshes (16x16 and
-              2x16x16): every ported architecture's decode_32k on both,
+              2x16x16): every ported architecture's decode_32k on both
+              (the MoE configs' in processes of their own: Grok-1's
+              TP-experts layout and Llama-4's expert parallelism),
               RecurrentGemma-2B's long_500k on both (``--mesh both``), and
               Qwen3-8B's prefill_32k and train_4k on the single pod, each
               at its published size.  Every cell must be ``ok``, and a
@@ -187,7 +203,7 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
 Then one JSON line with every kernel's numbers (flash decode's with its
 ``kv_seq`` rank share, whose ``launches`` are the partial op's in the
 serve phase: 0, the card being a mesh of model 1; a kernel's ``launches``
-are those of its main path: the serve phase's, summed over the seven
+are those of its main path: the serve phase's, summed over the nine
 served architectures and named by them in ``launches_by_arch``, RG-LRU's
 backward kernel's the lm-train phase's), each served model's times,
 busy ms and idle shares, the lm-train numbers, the dry-run cells' trace
@@ -199,6 +215,7 @@ JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -223,7 +240,14 @@ ARCHS = ("qwen3_8b", "recurrentgemma_2b")
 # to ARCHS
 BACKBONE_ARCHS = ("codeqwen15_7b", "granite_3_2b", "granite_20b",
                   "chameleon_34b", "musicgen_medium")
-SERVE_ARCHS = ARCHS + BACKBONE_ARCHS
+# the Mixture-of-Experts configs, served at their published width and cut
+# in depth to the most layers whose bf16 weights stay near Chameleon-34B's
+# 63.88 GiB (Grok-1: 6 of 64 layers, 57.99 GiB; 7 would be 67.15 GiB;
+# Llama-4 Maverick: 2 of 48, 64.09 GiB, one layer's experts 32 GiB),
+# captured at full depth
+MOE_ARCHS = ("grok_1_314b", "llama4_maverick_400b_a17b")
+SERVE_LAYERS = {"grok_1_314b": 6, "llama4_maverick_400b_a17b": 2}
+SERVE_ARCHS = ARCHS + BACKBONE_ARCHS + MOE_ARCHS
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 128, 32
 PAPER_APPS = ("resnet", "gnmt", "paper")
 TRAIN_STEPS = 10
@@ -322,10 +346,11 @@ def rmsnorm_cases() -> list:
         ("decode rows(B,2560)", (BATCH, 2560), bf16, "decode", 0),
     ] + [
         # the transformer-backbone configs' model widths (MusicGen-medium,
-        # Granite-3-2B, Granite-20B, Chameleon-34B: the block kernel's
-        # run-time width instances) and Chameleon's 64 query heads' qk rows
+        # Granite-3-2B, Llama-4 Maverick, Granite-20B and Grok-1,
+        # Chameleon-34B: the block kernel's run-time width instances) and
+        # Chameleon's 64 query heads' qk rows
         (f"{k}rows({r},{d})", (n, d), bf16, kind, 0)
-        for d in (1536, 2048, 6144, 8192)
+        for d in (1536, 2048, 5120, 6144, 8192)
         for k, r, n, kind in (("", "B*S", rows, "prefill"),
                               ("decode ", "B", BATCH, "decode"))
     ] + [
@@ -640,7 +665,7 @@ def check_kernels() -> dict:
             # Granite-20B's MQA, Chameleon-34B's 64/8 (Granite-3-2B's 32/8
             # at dh 64 is the "dh64" case)
             *((f"{name} B8 S128", PROMPT_LEN, PROMPT_LEN, h, kvh, dh, 0, 0,
-               bf16, 2e-2) for name, h, kvh, dh in NEW_HEADS)):
+               bf16, 2e-2) for name, h, kvh, dh in NEW_HEADS + MOE_HEADS)):
         nb = 1 if case.startswith("train") else BATCH
         q = randn(nb, sq, h, dh).to(dtype)
         k = randn(nb, skv, kvh, dh).to(dtype)
@@ -723,7 +748,7 @@ def check_kernels() -> dict:
                bf16) for n in (129, 2048 + 100)]
     cases += [(f"{name} cache_len 129 L{slots}", 129, h, kvh, dh, slots, 0,
                bf16, bf16) for name, h, kvh, dh in
-              NEW_HEADS + (("gqa 32/8 dh64", 32, 8, 64),)]
+              NEW_HEADS + MOE_HEADS + (("gqa 32/8 dh64", 32, 8, 64),)]
     cases += [
         (f"fp32 q/cache dh256 G10 L{slots}", 129, 10, 1, 256, slots, 0, f32,
          f32),
@@ -896,6 +921,9 @@ def check_kernels() -> dict:
 
 # the transformer-backbone configs' attention layouts beyond Qwen3-8B's and
 # the dh-64 32/8 case: (name, query heads, kv heads, head dim)
+# the MoE configs' layouts: Grok-1's 48 and Llama-4's 40 query heads over 8
+# kv heads of 128 (query groups of 6 and 5, not powers of two)
+MOE_HEADS = (("gqa 48/8 dh128", 48, 8, 128), ("gqa 40/8 dh128", 40, 8, 128))
 NEW_HEADS = (("mha 32/32 dh128", 32, 32, 128), ("mha 24/24 dh64", 24, 24, 64),
              ("mqa 48/1 dh128", 48, 1, 128), ("gqa 64/8 dh128", 64, 8, 128))
 CP_SHARDS, CP_SEQ = 4, 512
@@ -1363,7 +1391,7 @@ def run_serve(arch: str) -> tuple[dict, dict]:
     from repro_torch.parallel import Sharder
     from repro_torch.serve import generate
 
-    cfg = launch.model_config(arch)
+    cfg = launch.model_config(arch, SERVE_LAYERS.get(arch))
     embeds = cfg.input_mode == "embeddings"
     if embeds:
         res = serve_embeddings(cfg)
@@ -1401,16 +1429,23 @@ def run_serve(arch: str) -> tuple[dict, dict]:
     log(f"[serve] sample tokens {toks[0, :12].tolist()}; share equal to the "
         f"timed run's tokens {same:.3f}")
 
-    # first decode step: kernels against the plain versions on the card
+    if cfg.n_experts:
+        log_moe_bound(cfg, params)
+
+    # first decode step: kernels against the plain versions on the card;
+    # each MoE layer's top-k choices of both runs recorded
+    routes: dict = {"kernel": [], "plain": []}
     with torch.inference_mode():
         logits0, cache = model.prefill(params, prefill_batch(res), shd,
                                        max_len=PROMPT_LEN + NEW_TOKENS)
         step = step_batch(res, 0, logits0)
         plain_cache = _clone(cache)
-        got, _ = model.decode_step(params, cache, step, shd)
+        with recorded_routes(routes["kernel"]):
+            got, _ = model.decode_step(params, cache, step, shd)
         with mock.patch.object(rn_ops, "rmsnorm", rmsnorm_ref), \
                 mock.patch.object(fd_ops, "decode_attend", decode_ref), \
-                mock.patch.object(rg_ops, "rglru_scan", rglru_ref):
+                mock.patch.object(rg_ops, "rglru_scan", rglru_ref), \
+                recorded_routes(routes["plain"]):
             want, _ = model.decode_step(params, plain_cache, step, shd)
     del cache, plain_cache
     got, want = got.float(), want.float()
@@ -1426,9 +1461,79 @@ def run_serve(arch: str) -> tuple[dict, dict]:
     log(f"[serve] {cfg.name} first decode step logits vs plain versions: "
         f"max_abs_err {err:.4f} (tol {tol:.4f} = 5% of max |logit| "
         f"{scale:.2f}), argmax agreement {agree:.3f}")
+    same_rows = routing_flips(cfg, routes)
+    if not err <= tol and same_rows is not None and bool(same_rows.any()) \
+            and not bool(same_rows.all()):
+        # a routing flip (a discrete choice on bf16 inputs) sends a
+        # sequence through other experts: hold the sequences whose routing
+        # agrees in every layer, at the same tolerance
+        err = (got - want)[same_rows].abs().max().item()
+        log(f"[serve] {cfg.name} routing flipped: the {int(same_rows.sum())} "
+            f"of {BATCH} sequences whose routing agrees in every layer: "
+            f"max_abs_err {err:.4f} (tol {tol:.4f})")
     if not err <= tol:
         fail(f"decode logits differ from the plain versions: {err} > {tol}")
     return counts, res
+
+
+@contextlib.contextmanager
+def recorded_routes(into: list):
+    """Record each MoE layer's top-k expert choices (``moe.route``'s
+    ``gate_idx``), in call order, while the block runs."""
+    from unittest import mock
+
+    from repro_torch.models import moe
+
+    route = moe.route
+
+    def spy(*args, **kwargs):
+        out = route(*args, **kwargs)
+        into.append(out[3])
+        return out
+
+    with mock.patch.object(moe, "route", spy):
+        yield
+
+
+def routing_flips(cfg, routes: dict):
+    """Log, per MoE layer, how many top-k choices of the kernels' decode
+    step differ from the plain versions' (as sets a token).  Returns a
+    (B,) mask of the sequences whose choices agree in every layer, or
+    None for a model without experts."""
+    import torch
+
+    if not cfg.n_experts:
+        return None
+    a_all, b_all = routes["kernel"], routes["plain"]
+    if len(a_all) != len(b_all) or len(a_all) != cfg.n_layers:
+        fail(f"{cfg.name}: {len(a_all)} / {len(b_all)} routed layers "
+             f"recorded, {cfg.n_layers} expected")
+    same = torch.ones(a_all[0].shape[0], dtype=torch.bool,
+                      device=a_all[0].device)
+    flips = []
+    for a, b in zip(a_all, b_all):
+        # a choice of one run that the other run did not make
+        miss = (a[..., :, None] != b[..., None, :]).all(-1)
+        flips.append(int(miss.sum()))
+        same &= ~miss.flatten(1).any(-1)
+    log(f"[serve] {cfg.name} top-{cfg.top_k} choices that differ between "
+        f"the kernels' and the plain versions' first decode step, by layer: "
+        f"{flips} (of {BATCH * cfg.top_k} a layer)")
+    return same
+
+
+def log_moe_bound(cfg, params) -> None:
+    """A MoE model's decode bound: every step reads every expert's weights
+    (the capacity dispatch computes each expert's slots, filled or not),
+    so the step cannot take less than the weights over the HBM rate."""
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.models.moe import group_capacity
+
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    log(f"[serve] {cfg.name}: {nbytes / 2**30:.2f} GiB of weights read a "
+        f"decode step, bound {nbytes / HBM_BYTES_PER_S * 1e3:.2f} ms a token "
+        f"(3.35 TB/s); capacity {group_capacity(cfg, PROMPT_LEN)} slots an "
+        f"expert in prefill, {group_capacity(cfg, 1)} in decode")
 
 
 def _device_rows(prof) -> list:
@@ -1569,6 +1674,23 @@ MONITOR_CALLS = {
         ("prefill", "reduce-scatter"): 289, ("prefill", "all-reduce"): 96,
         ("decode", "all-to-all"): 289, ("decode", "all-gather"): 288,
         ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 192,
+    },
+    # the MoE configs at full depth (64 and 48 layers; 8 and 128 experts
+    # over model 2: EP): each block's local steps gather the router over
+    # data and model and wi/wo over data, and all-reduce the experts'
+    # shares over model (4 all-gathers and 1 all-reduce a layer beyond the
+    # attention's); no all-to-all dispatches a token
+    "grok_1_314b": {
+        ("prefill", "all-to-all"): 386, ("prefill", "all-gather"): 321,
+        ("prefill", "reduce-scatter"): 321, ("prefill", "all-reduce"): 129,
+        ("decode", "all-to-all"): 258, ("decode", "all-gather"): 513,
+        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 257,
+    },
+    "llama4_maverick_400b_a17b": {
+        ("prefill", "all-to-all"): 290, ("prefill", "all-gather"): 241,
+        ("prefill", "reduce-scatter"): 241, ("prefill", "all-reduce"): 97,
+        ("decode", "all-to-all"): 194, ("decode", "all-gather"): 385,
+        ("decode", "reduce-scatter"): 145, ("decode", "all-reduce"): 193,
     },
 }
 
@@ -2377,9 +2499,10 @@ def count_prefill(res) -> dict:
 # phase 8: the command line on the card
 # ---------------------------------------------------------------------------
 CLI_DEVICE = "cuda"
-CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve", "codeqwen15_7b",
-               "granite_3_2b", "qwen3_8b", "granite_20b", "chameleon_34b",
-               "musicgen_medium", "recurrentgemma_2b")
+CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve", "moe-skew", "grok_1_314b",
+               "llama4_maverick_400b_a17b", "codeqwen15_7b", "granite_3_2b",
+               "qwen3_8b", "granite_20b", "chameleon_34b", "musicgen_medium",
+               "recurrentgemma_2b")
 CLI_MESHES = ("4x2", "2x2x2")
 CLI_ALGORITHMS = ("ring", "hierarchical")
 # the reference's summary and scale CSV headers (repro.core.export.
@@ -2436,6 +2559,24 @@ CLI_SWEEP_CALLS = {
                                  "reduce-scatter": 25},
     ("musicgen_medium", "2x2x2"): {"all-gather": 69, "all-reduce": 66,
                                    "reduce-scatter": 25},
+    # the hot expert's dispatch and combine, one all_to_all_single each
+    ("moe-skew", "4x2"): {"all-to-all": 2},
+    ("moe-skew", "2x2x2"): {"all-to-all": 2},
+    # the reduced MoE train cells (4 experts over model 2): the weight
+    # gathers of each block's local steps and, in the backward, the
+    # gradients the batch and expert shards share, reduced
+    ("grok_1_314b", "4x2"): {"all-gather": 71, "all-reduce": 60,
+                             "all-to-all": 2, "reduce-scatter": 34},
+    ("grok_1_314b", "2x2x2"): {"all-gather": 71, "all-reduce": 98,
+                               "all-to-all": 2, "reduce-scatter": 34},
+    ("llama4_maverick_400b_a17b", "4x2"): {"all-gather": 71,
+                                           "all-reduce": 60,
+                                           "all-to-all": 2,
+                                           "reduce-scatter": 34},
+    ("llama4_maverick_400b_a17b", "2x2x2"): {"all-gather": 71,
+                                             "all-reduce": 98,
+                                             "all-to-all": 2,
+                                             "reduce-scatter": 34},
 }
 # the scale curve's fleet sizes: the all-to-alls of a cuda capture hold
 # 1.0 M COO entries at 4096 devices and 4.2 M at 16384, which the
@@ -2470,8 +2611,13 @@ def cli(*args: str, expect: int = 0) -> str:
 def dryrun_runs() -> tuple:
     from repro_torch import configs
 
-    return ((configs.ARCH_IDS, "decode_32k", "single"),
-            (configs.ARCH_IDS, "decode_32k", "multi"),
+    # the MoE configs' decode cells in processes of their own (Grok-1's 64
+    # layers and Llama-4's 48 trace longest), beside the others'
+    dense = tuple(a for a in configs.ARCH_IDS if a not in MOE_ARCHS)
+    moe = tuple(a for a in configs.ARCH_IDS if a in MOE_ARCHS)
+    return ((moe, "decode_32k", "single"), (moe, "decode_32k", "multi"),
+            (dense, "decode_32k", "single"),
+            (dense, "decode_32k", "multi"),
             (("recurrentgemma_2b",), "long_500k", "both"),
             (("qwen3_8b",), "prefill_32k", "single"),
             (("qwen3_8b",), "train_4k", "single"))
@@ -2637,6 +2783,14 @@ def run_cli(captures: dict, traces: dict, prefill: dict) -> None:
     for alg, want in (("ring", 1), ("hierarchical", 0)):
         cli("lint", "paper", "--mesh", "2x2x2", "--algorithms", alg,
             "--fail-on", "error", *dev, *cache, expect=want)
+    # the hot expert's all-to-alls: one skewed-a2a warning each on 4x2
+    # (data 4: skew 2.4); ``--fail-on warn`` exits 1 on them
+    doc = json.loads(cli("lint", "moe-skew", "--mesh", "4x2", "--json",
+                         "--fail-on", "warn", *dev, *cache, expect=1))
+    rules = [f["rule_id"] for f in doc["findings"]]
+    log(f"[cli] lint moe-skew on 4x2: findings {rules}")
+    if rules != ["skewed-a2a", "skewed-a2a"]:
+        fail(f"lint moe-skew found {rules}, expected two skewed-a2a")
 
     saved = ROOT / "build" / "chip_smoke_paper_paper_report.json"
     doc = json.loads(cli("compare", str(traces["paper"]), str(saved),
@@ -2762,7 +2916,7 @@ def main() -> None:
     seconds["lm-train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reports = {arch: run_monitor(arch) for arch in ARCHS}
-    for arch in BACKBONE_ARCHS:
+    for arch in BACKBONE_ARCHS + MOE_ARCHS:
         run_monitor(arch)
     for arch in ARCHS:
         run_train_monitor(arch)

@@ -1,10 +1,12 @@
 """Architecture registry (port of ``repro.configs``): one module per
 architecture, each exporting ``CONFIG`` (the published configuration),
 ``REDUCED`` (same family at test scale) and ``TRAIN`` (its train preset).
-Ported so far, in the reference's order: the dense ``codeqwen15_7b``,
+Ported so far, in the reference's order: the ``moe`` ``grok_1_314b`` and
+``llama4_maverick_400b_a17b``, the dense ``codeqwen15_7b``,
 ``granite_3_2b``, ``qwen3_8b`` and ``granite_20b``, the ``vlm``
 ``chameleon_34b`` and ``audio`` ``musicgen_medium`` (both read stub
-embeddings), and the hybrid ``recurrentgemma_2b``.
+embeddings), and the hybrid ``recurrentgemma_2b``.  The reference's
+``xlstm_1_3b`` waits for its port.
 
 ``input_specs(cfg, shape)`` builds ``torch.empty`` stand-ins for every
 input of the step a shape exercises (train step / prefill / decode);
@@ -19,6 +21,8 @@ import torch
 from repro_torch.models.common import ModelConfig, ShapeConfig
 
 ARCH_IDS = (
+    "grok_1_314b",
+    "llama4_maverick_400b_a17b",
     "codeqwen15_7b",
     "granite_3_2b",
     "qwen3_8b",

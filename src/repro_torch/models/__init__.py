@@ -9,8 +9,9 @@ def build_model(cfg: ModelConfig):
     """The model for a config, by family as the reference's
     ``repro.models.api.build_model``: ``hybrid`` is :class:`GriffinLM`;
     ``dense``, ``moe``, ``vlm`` and ``audio`` run on the transformer
-    backbone (:class:`TransformerLM`, which refuses experts until MoE is
-    ported); ``ssm`` (xLSTM) waits for a later port slice.  The paper's
+    backbone (:class:`TransformerLM`; a ``moe`` config's layers take
+    Mixture-of-Experts blocks); ``ssm`` (xLSTM) waits for a later port
+    slice.  The paper's
     applications (:class:`ResNet18`, :class:`GNMT`) take no
     ``ModelConfig``, as in the reference."""
     if cfg.family == "ssm":

@@ -218,9 +218,10 @@ def _init_leaf(spec: Spec, gen: torch.Generator, dtype: torch.dtype,
     else:
         raise ValueError(f"unknown init {spec.init!r}")
     out = torch.empty(shape, dtype=dtype, device=device)
-    # draw in fp32 one leading slice at a time, so a stacked (L, ...) leaf
-    # never needs an fp32 copy of itself
-    for part in (out if len(shape) >= 3 else (out,)):
+    # draw in fp32 one matrix (the last two dims) at a time, so a stacked
+    # (L, ...) leaf, or a stacked (L, E, ...) expert leaf, never needs an
+    # fp32 copy of more than one matrix
+    for part in (out.view(-1, *shape[-2:]) if len(shape) >= 3 else (out,)):
         part.copy_(torch.randn(part.shape, generator=gen, device=device)
                    .mul_(std))
     return out

@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM (port of the dense half of
-``repro.models.transformer``): the dense, ``vlm`` and ``audio`` configs.
-A config with ``input_mode == "embeddings"`` reads ``batch["embeds"]``
+"""Decoder-only transformer LM (port of ``repro.models.transformer``):
+the dense, ``moe``, ``vlm`` and ``audio`` configs.  A config with
+``n_experts`` takes a Mixture-of-Experts block (:mod:`.moe`) in place of
+each layer's MLP.  A config with ``input_mode == "embeddings"`` reads ``batch["embeds"]``
 (the stubbed modality front end's output) in place of token ids.
 
 Parameters keep the reference's stacked ``(L, ...)`` layout; the
@@ -9,8 +10,9 @@ of each stacked tensor.  Its remat policies (``jax.checkpoint`` per layer)
 are ``torch.utils.checkpoint`` per layer: ``full`` saves nothing,
 ``dots`` saves the outputs of the weight matmuls (``aten.mm``/``addmm``,
 the dots without batch dims that the reference's policy keeps) and
-recomputes everything else, the kernel ops included.  MoE waits for a
-later port slice.
+recomputes everything else, the kernel ops included.  A layer's
+auxiliary MoE loss leaves its checkpointed function beside ``x``, so it is
+recomputed and differentiated as the reference's ``scan`` carry is.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from . import attention, layers
+from . import attention, layers, moe as moe_lib
 from .common import (ModelConfig, init_params, layer_of, param_axes,
                      param_shapes, rms_norm)
 
@@ -50,12 +52,9 @@ def with_remat(fn: Callable, policy: str) -> Callable:
 
 
 class TransformerLM:
-    """Dense decoder-only LM over a nested dict of parameters."""
+    """Decoder-only LM (dense or MoE) over a nested dict of parameters."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.n_experts:
-            raise NotImplementedError(
-                "MoE models wait for a later port slice")
         self.cfg = cfg
 
     # ------------------------------------------------------------------
@@ -64,14 +63,18 @@ class TransformerLM:
     def specs(self):
         cfg = self.cfg
         L = cfg.n_layers
+        layer = {
+            "norm1": layers.norm_spec(cfg, stacked=L),
+            "attn": attention.attn_spec(cfg, stacked=L),
+            "norm2": layers.norm_spec(cfg, stacked=L),
+        }
+        if cfg.n_experts:
+            layer["moe"] = moe_lib.moe_spec(cfg, stacked=L)
+        else:
+            layer["mlp"] = layers.mlp_spec(cfg, stacked=L)
         return {
             "embed": layers.embed_spec(cfg),
-            "layers": {
-                "norm1": layers.norm_spec(cfg, stacked=L),
-                "attn": attention.attn_spec(cfg, stacked=L),
-                "norm2": layers.norm_spec(cfg, stacked=L),
-                "mlp": layers.mlp_spec(cfg, stacked=L),
-            },
+            "layers": layer,
             "final_norm": layers.norm_spec(cfg),
             "head": layers.head_spec(cfg),
         }
@@ -107,6 +110,9 @@ class TransformerLM:
         return layers.embed(params["embed"], tokens, self.cfg, shd)
 
     def _layer_fn(self, x, lp, shd, cache=None):
+        """One layer -> ``(x, aux, new_cache)``: ``aux`` is the MoE
+        block's auxiliary loss, None for a dense layer and when serving
+        (``cache`` given), which discards it."""
         cfg = self.cfg
         act = ("batch", "seq", None)
         h = rms_norm(x, lp["norm1"], cfg.norm_eps, shd, act)
@@ -114,26 +120,39 @@ class TransformerLM:
             lp["attn"], h, cfg, shd, cache=cache)
         x = x + attn_out
         h = rms_norm(x, lp["norm2"], cfg.norm_eps, shd, act)
-        x = x + layers.mlp(lp["mlp"], h, cfg, shd)
-        return shd.constraint(x, act), new_cache
+        aux = None
+        if cfg.n_experts:
+            mo, aux = moe_lib.moe_block(lp["moe"], h, cfg, shd,
+                                        with_aux=cache is None)
+        else:
+            mo = layers.mlp(lp["mlp"], h, cfg, shd)
+        x = x + mo
+        return shd.constraint(x, act), aux, new_cache
 
     def loss_fn(self, params, batch, shd, remat: Optional[str] = None):
-        """``(loss, {"xent", "aux"})`` of ``batch`` (``tokens``,
-        ``labels``): each layer under the ``remat`` policy (None is
-        ``dots``, as in the reference), then the chunked LM loss."""
+        """``(loss + aux, {"xent": loss, "aux": aux})`` of ``batch``
+        (``tokens``, ``labels``): each layer under the ``remat`` policy
+        (None is ``dots``, as in the reference), then the chunked LM loss;
+        ``aux`` sums the MoE layers' auxiliary losses (0 for a dense
+        model)."""
         cfg = self.cfg
         x = self._inputs(params, batch, shd)
-        layer = with_remat(lambda x, lp: self._layer_fn(x, lp, shd)[0],
+        layer = with_remat(lambda x, lp: self._layer_fn(x, lp, shd)[:2],
                            remat or "dots")
+        aux = None
         for l in range(cfg.n_layers):
-            x = layer(x, layer_of(params["layers"], l))
+            x, a = layer(x, layer_of(params["layers"], l))
+            if a is not None:
+                aux = a if aux is None else aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps, shd,
                      ("batch", "seq", None))
         labels = shd.shard(batch["labels"], ("batch", "seq"))
         loss = layers.chunked_lm_loss(params.get("head"), params["embed"], x,
                                       labels, cfg, shd)
-        return loss, {"xent": loss, "aux": torch.zeros(
-            (), dtype=torch.float32, device=loss.device)}
+        if aux is None:
+            return loss, {"xent": loss, "aux": torch.zeros(
+                (), dtype=torch.float32, device=loss.device)}
+        return loss + aux, {"xent": loss, "aux": aux}
 
     def _logits(self, params, x, shd):
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps, shd,
@@ -187,8 +206,8 @@ class TransformerLM:
         for l in range(self.cfg.n_layers):
             layer_cache = {"k": cache["k"][l], "v": cache["v"][l],
                            "len": cache["len"]}
-            x, _ = self._layer_fn(x, layer_of(params["layers"], l), shd,
-                                  cache=layer_cache)
+            x, _, _ = self._layer_fn(x, layer_of(params["layers"], l), shd,
+                                     cache=layer_cache)
         cache["len"].add_(x.shape[1])
         return self._logits(params, x, shd), cache
 
@@ -204,7 +223,7 @@ class TransformerLM:
         spec = {"max_len": max_len, "dtype": CACHE_DTYPE}
         ks, vs = [], []
         for l in range(self.cfg.n_layers):
-            x, new_cache = self._layer_fn(
+            x, _, new_cache = self._layer_fn(
                 x, layer_of(params["layers"], l), shd, cache=spec)
             ks.append(new_cache["k"])
             vs.append(new_cache["v"])

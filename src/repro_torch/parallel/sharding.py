@@ -152,14 +152,21 @@ class Sharder:
             return x
         return x.redistribute(self.mesh, self.placements(x.shape, axes))
 
-    def local(self, fn, args, axes, out=0):
+    def local(self, fn, args, axes, out=0, out_placements=None,
+              grad_placements=None):
         """``fn(*args)`` on local shards.
 
         ``axes[i]`` is the logical layout ``args[i]`` is redistributed to
         first (``None``: as it already is; plain tensors and non-tensors
         pass through).  Each output takes the placements of ``args[j]``
-        for ``j`` in ``out`` (an int for one output, a tuple for several).
-        Without a mesh this is ``fn(*args)``.
+        for ``j`` in ``out`` (an int for one output, a tuple for several),
+        or, given ``out_placements``, those (a list for one output, a tuple
+        of lists for several).  ``grad_placements`` (one entry an
+        argument, None to keep its input placements) says how each local
+        input's gradient is laid out: ``Partial()`` on a mesh dim where the
+        input is replicated but the ranks' work differs (a weight read by
+        each batch shard), so the backward reduces it.  Without a mesh this
+        is ``fn(*args)``.
         """
         if self.mesh is None:
             return fn(*args)
@@ -176,8 +183,16 @@ class Sharder:
                 in_pl.append(list(self.placements(x.shape, ax)))
         # local_map reads a list as one output's placements, a tuple as
         # one entry per output
-        out_pl = (in_pl[out] if isinstance(out, int)
-                  else tuple(in_pl[j] for j in out))
+        if out_placements is not None:
+            out_pl = out_placements
+        else:
+            out_pl = (in_pl[out] if isinstance(out, int)
+                      else tuple(in_pl[j] for j in out))
+        grad_pl = None
+        if grad_placements is not None:
+            grad_pl = [g if g is not None else p
+                       for g, p in zip(grad_placements, in_pl)]
         return local_map(fn, out_placements=out_pl, in_placements=in_pl,
+                         in_grad_placements=grad_pl,
                          redistribute_inputs=True,
                          device_mesh=self.mesh)(*args)

@@ -3,9 +3,10 @@ mesh x algorithm) cells and emit the comparative artifact set.
 
 The registry holds the paper's own applications -- the DDP microbenchmark,
 GNMT and ResNet-18 --, the ``serve`` cell (reduced Qwen3-8B prefill and
-decode as two phases of one session) and one train-step cell per ported
-architecture (``qwen3_8b``, ``recurrentgemma_2b``: the reduced config,
-global batch ``2 x data``, sequence 64).  A config's builder takes a
+decode as two phases of one session), the ``moe-skew`` cell (an
+expert-parallel all-to-all dispatch with a hot expert) and one train-step
+cell per ported architecture (the reduced config, global batch
+``2 x data``, sequence 64).  A config's builder takes a
 ``DeviceMesh`` and returns ``dict(fn=, args=, kwargs=, op_transform=)`` or
 ``dict(captures=[dict(phase=, name=, fn=, args=, kwargs=), ...])``;
 :func:`_monitor_cell` calls it under the session's ``FakeTensorMode``, so
@@ -31,8 +32,7 @@ builder's defaults are the reference's sweep sizes; ``launch.paper`` and
   is in the reference, invisible in the output.
 
 Capture meshes are ``cuda`` unless the caller passes ``device="cpu"``.
-The reference's ``moe-skew`` cell and its other eight architectures' cells
-wait for the port's MoE layer and those models.
+The reference's ``xlstm_1_3b`` cell waits for that model's port.
 """
 from __future__ import annotations
 
@@ -271,6 +271,72 @@ def _build_serve(mesh):
                       max_len=48)
 
 
+MOE_SKEW_HOT = 0.6      # the moe-skew cell's hot expert: 60% of the tokens
+
+
+def hot_expert(op):
+    """The moe-skew cell's ``op_transform``: every all-to-all gets a
+    per-rank byte vector summing to its payload, :data:`MOE_SKEW_HOT` of it
+    on rank 0 (the hot expert's) and the rest spread evenly -- the routing
+    skew a capture cannot see, entered by hand as the reference does."""
+    if op.kind not in ("all-to-all", "ragged-all-to-all"):
+        return op
+    m = op.group_size
+    if m < 2:
+        return op
+    total = float(op.payload_bytes)
+    vec = [total * (1.0 - MOE_SKEW_HOT) / (m - 1)] * m
+    vec[0] = total * MOE_SKEW_HOT
+    return dataclasses.replace(op, bytes_per_rank_vec=vec)
+
+
+def moe_skew_step(group, n: int, cap: int, d: int):
+    """Expert-parallel dispatch, expert MLP and combine on one rank of
+    ``group`` (one expert a rank, ``n`` ranks): ``tokens`` (n, cap, d), row
+    ``e`` the capacity-padded buffer this rank routes to expert ``e``; one
+    ``all_to_all_single`` sends each row to its expert, the expert's MLP
+    (``silu(x @ wi) @ wo``) runs on the ``n * cap`` rows it received, and
+    a second ``all_to_all_single`` sends them back."""
+    from torch.distributed import _functional_collectives as funcol
+
+    def step(tokens, wi, wo):
+        recv = funcol.all_to_all_single(tokens, None, None, group)
+        h = torch.nn.functional.silu(recv.reshape(n * cap, d) @ wi) @ wo
+        return funcol.all_to_all_single(h.reshape(n, cap, d), None, None,
+                                        group)
+
+    return step
+
+
+def _build_moe_skew(mesh):
+    """Skewed MoE dispatch/combine (the reference's ``moe-skew`` cell):
+    expert-parallel all-to-alls with an irregular per-rank byte vector.
+
+    The model's MoE block (:mod:`repro_torch.models.moe`) dispatches by
+    batched products and issues no all-to-all, so this cell uses the
+    NCCL-style formulation: one expert a ``data`` rank, d 128, f 256,
+    capacity :func:`~repro_torch.models.moe.group_capacity` of a group of
+    ``32 n`` tokens, and :func:`moe_skew_step` on each rank's local
+    buffers.  A capture cannot know the routing, so :func:`hot_expert`
+    enters it: expert 0 takes 60% of the tokens -- the hot row of the comm
+    matrix, the straggler of the timed schedule, the ``skewed-a2a`` lint
+    finding."""
+    from repro_torch.models.common import ModelConfig
+    from repro_torch.models.moe import group_capacity
+
+    n = _data_axis_size(mesh)
+    d, f = 128, 256
+    cfg = ModelConfig(name="moe_skew", family="moe", n_layers=1, d_model=d,
+                      n_heads=4, n_kv_heads=4, d_ff=f, vocab_size=256,
+                      n_experts=n, top_k=1)
+    cap = group_capacity(cfg, group=n * 32)   # tokens per (src, expert) slot
+    dev = mesh.device_type
+    return {"fn": moe_skew_step(mesh.get_group("data"), n, cap, d),
+            "args": (_f32(n, cap, d, device=dev), _f32(d, f, device=dev),
+                     _f32(f, d, device=dev)),
+            "op_transform": hot_expert}
+
+
 def train_cell(mesh, cfg, *, global_batch: int, seq_len: int,
                opt_cfg=None, train_cfg=None) -> dict:
     """One LM train step of ``cfg`` (the port's
@@ -331,6 +397,10 @@ def _registry() -> dict[str, SweepSpec]:
         SweepSpec("serve", "prefill/decode serve cells: one multi-phase "
                   "session per cell (qwen3_8b reduced; use --by-phase)",
                   "v1:qwen3,prompt=32,max=48", _build_serve),
+        SweepSpec("moe-skew", "skewed MoE expert dispatch: expert-parallel "
+                  "all-to-all with a 60%-hot expert 0 (irregular per-rank "
+                  "byte vectors via op_transform)",
+                  "v1:d=128,hot=0.6,topk=1", _build_moe_skew),
     ]
     for arch in configs.ARCH_IDS:
         specs.append(SweepSpec(

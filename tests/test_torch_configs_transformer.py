@@ -92,17 +92,21 @@ def test_config_modules_match_reference(arch):
 
 
 def test_build_model_by_family():
-    """``dense``/``vlm``/``audio`` run on the transformer backbone; experts
-    are refused by it; ``ssm`` waits for its port with a message naming
-    the family."""
+    """``dense``/``vlm``/``audio`` run on the transformer backbone; a
+    ``moe`` config builds one too, with MoE blocks in place of the MLPs;
+    ``ssm`` waits for its port with a message naming the family."""
     from repro_torch.models import TransformerLM
 
     for arch in ARCHS:
         assert isinstance(build_model(configs.config(arch)), TransformerLM)
     moe = dataclasses.replace(configs.config("qwen3_8b"), family="moe",
                               n_experts=8, top_k=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        build_model(moe)
+    model = build_model(moe)
+    assert isinstance(model, TransformerLM)
+    layer = model.specs()["layers"]
+    assert "moe" in layer and "mlp" not in layer
+    assert layer["moe"]["wi"].shape == (moe.n_layers, 8, moe.d_model,
+                                        2 * moe.d_ff)
     ssm = dataclasses.replace(configs.config("qwen3_8b"), family="ssm")
     with pytest.raises(NotImplementedError, match="'ssm'"):
         build_model(ssm)

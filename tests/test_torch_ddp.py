@@ -205,7 +205,8 @@ def test_mesh_specs_match_reference():
         sweep.parse_mesh("2x2x2x2")
     assert sorted(sweep.available_configs()) == [
         "chameleon_34b", "codeqwen15_7b", "gnmt", "granite_20b",
-        "granite_3_2b", "musicgen_medium", "paper", "qwen3_8b",
+        "granite_3_2b", "grok_1_314b", "llama4_maverick_400b_a17b",
+        "moe-skew", "musicgen_medium", "paper", "qwen3_8b",
         "recurrentgemma_2b", "resnet", "serve"]
     assert all(ref_sweep.available_configs()[n].version == s.version
                for n, s in sweep.available_configs().items())
