@@ -58,7 +58,9 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
 3. serve   -- for each served architecture (Qwen3-8B, RecurrentGemma-2B,
               then the transformer-backbone configs CodeQwen1.5-7B,
               Granite-3-2B, Granite-20B, Chameleon-34B and MusicGen-medium,
-              then the Mixture-of-Experts configs Grok-1 and Llama-4
+              then xLSTM-1.3B (48 layers of mLSTM and sLSTM blocks, whose
+              only kernel is RMSNorm: 97 launches a step), then the
+              Mixture-of-Experts configs Grok-1 and Llama-4
               Maverick), at its published width and depth (the MoE
               configs' depth cut to 6 and 2 layers: ``SERVE_LAYERS``),
               random weights from a seed, cast to bf16 once: 8 requests, prompt 128, 32 new
@@ -163,8 +165,9 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
 8. cli     -- the port's command line, ``python -m repro_torch``, in
               subprocesses on the card (captures on fake ``cuda`` meshes,
               a report cache under ``build/cli``): ``configs`` must list
-              the fourteen sweep configs (the paper apps, serve, moe-skew
-              and the nine architectures' reduced train steps); ``sweep`` of every config on
+              the fifteen sweep configs (the paper apps, serve, moe-skew
+              and the ten architectures' reduced train steps); ``sweep``
+              of every config on
               4x2 and 2x2x2 with ring and hierarchical, by phase and
               linted, run
               twice: the cold run captures each (config, mesh) cell once,
@@ -192,7 +195,8 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               2x16x16): every ported architecture's decode_32k on both
               (the MoE configs' in processes of their own: Grok-1's
               TP-experts layout and Llama-4's expert parallelism),
-              RecurrentGemma-2B's long_500k on both (``--mesh both``), and
+              xLSTM-1.3B's and RecurrentGemma-2B's long_500k on both
+              (``--mesh both``), and
               Qwen3-8B's prefill_32k and train_4k on the single pod, each
               at its published size.  Every cell must be ``ok``, and a
               decode cell's cache bytes per device must equal
@@ -203,7 +207,7 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
 Then one JSON line with every kernel's numbers (flash decode's with its
 ``kv_seq`` rank share, whose ``launches`` are the partial op's in the
 serve phase: 0, the card being a mesh of model 1; a kernel's ``launches``
-are those of its main path: the serve phase's, summed over the nine
+are those of its main path: the serve phase's, summed over the ten
 served architectures and named by them in ``launches_by_arch``, RG-LRU's
 backward kernel's the lm-train phase's), each served model's times,
 busy ms and idle shares, the lm-train numbers, the dry-run cells' trace
@@ -247,7 +251,10 @@ BACKBONE_ARCHS = ("codeqwen15_7b", "granite_3_2b", "granite_20b",
 # captured at full depth
 MOE_ARCHS = ("grok_1_314b", "llama4_maverick_400b_a17b")
 SERVE_LAYERS = {"grok_1_314b": 6, "llama4_maverick_400b_a17b": 2}
-SERVE_ARCHS = ARCHS + BACKBONE_ARCHS + MOE_ARCHS
+# xLSTM-1.3B (2.62 B parameters, 5.25 GB of bf16 weights) at its published
+# width and depth: 24 (mLSTM, sLSTM) superblocks, no attention
+SSM_ARCHS = ("xlstm_1_3b",)
+SERVE_ARCHS = ARCHS + BACKBONE_ARCHS + SSM_ARCHS + MOE_ARCHS
 BATCH, PROMPT_LEN, NEW_TOKENS = 8, 128, 32
 PAPER_APPS = ("resnet", "gnmt", "paper")
 TRAIN_STEPS = 10
@@ -1268,18 +1275,21 @@ def check_kernel_attrs(launched: dict) -> None:
 
 def expected_launches(cfg, steps: int) -> dict:
     """Kernel launches of one prefill and ``steps`` decode steps: per
-    prefill and per decode step two RMSNorms a layer (norm1, norm2), two
-    more per attention layer with qk-norm, and the final norm; per prefill
-    one flash attention an attention layer, per decode step one flash
-    decode an attention layer; per prefill and per decode step one RG-LRU
-    scan a recurrent layer (``cfg.block_kind`` names each layer's kind); no
-    backward, and no partial decode (the card is a mesh of model 1)."""
+    prefill and per decode step two RMSNorms a layer (norm1 and norm2; an
+    xLSTM block's norm and head norm), two more per attention layer with
+    qk-norm, and the final norm (xLSTM-1.3B: 97); per prefill one flash
+    attention an attention layer, per decode step one flash decode an
+    attention layer; per prefill and per decode step one RG-LRU scan a
+    recurrent layer (``cfg.block_kind`` names each layer's kind; xLSTM's
+    mLSTM and sLSTM layers launch none of the four); no backward, and no
+    partial decode (the card is a mesh of model 1)."""
     n = cfg.n_layers
     n_attn = sum(cfg.block_kind(i) == "attn" for i in range(n))
+    n_rec = sum(cfg.block_kind(i) == "rec" for i in range(n))
     norms = 2 * n + 1 + (2 * n_attn if cfg.qk_norm else 0)
     return {"rmsnorm": (1 + steps) * norms, "flash_attention": n_attn,
             "flash_decode": steps * n_attn, "flash_decode_partial": 0,
-            "rglru": (1 + steps) * (n - n_attn), "rglru_bwd": 0}
+            "rglru": (1 + steps) * n_rec, "rglru_bwd": 0}
 
 
 def _clone(tree):
@@ -1675,6 +1685,18 @@ MONITOR_CALLS = {
         ("decode", "all-to-all"): 289, ("decode", "all-gather"): 288,
         ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 192,
     },
+    # xLSTM-1.3B at full depth (24 mLSTM/sLSTM superblocks, 4 heads over
+    # model 2: two whole heads a rank): no attention and no kv cache; each
+    # block's cell runs on local shards, its inputs resharded into it (the
+    # all-to-alls), the decode step in the cache's layout (C split along
+    # its v rows; q, k and n gathered whole, h gathered before the heads
+    # merge)
+    "xlstm_1_3b": {
+        ("prefill", "all-to-all"): 194, ("prefill", "all-gather"): 217,
+        ("prefill", "reduce-scatter"): 265, ("prefill", "all-reduce"): 73,
+        ("decode", "all-to-all"): 194, ("decode", "all-gather"): 241,
+        ("decode", "reduce-scatter"): 193, ("decode", "all-reduce"): 97,
+    },
     # the MoE configs at full depth (64 and 48 layers; 8 and 128 experts
     # over model 2: EP): each block's local steps gather the router over
     # data and model and wi/wo over data, and all-reduce the experts'
@@ -1719,9 +1741,9 @@ def run_monitor(arch: str):
     log(f"[monitor] {cfg.name} per-phase calls {calls}")
     if not any(kind == "all-to-all" for _, kind in calls):
         fail(f"{cfg.name}: no all-to-all recorded on a cuda mesh")
-    if calls != MONITOR_CALLS[arch]:
+    if calls != MONITOR_CALLS.get(arch):
         fail(f"{cfg.name} per-phase collective calls {calls} != expected "
-             f"{MONITOR_CALLS[arch]}")
+             f"{MONITOR_CALLS.get(arch)}")
     save_and_reload(rep, arch)
     return rep
 
@@ -1731,17 +1753,21 @@ def run_monitor(arch: str):
 # ``cuda`` mesh, global batch 8 x 128 tokens: kind -> (calls, payload
 # bytes).  FSDP all-gathers of the weights in the forward and again in the
 # recomputed forward, reduce-scatters of their gradients, the all-to-alls of
-# DTensor's shard-to-shard moves, and one scalar all-reduce a sharded leaf
-# for the gradient norm
+# DTensor's shard-to-shard moves, one scalar all-reduce a sharded leaf
+# for the gradient norm, and the all-reduces of the gradients of weights a
+# local step reads whole on each batch shard (the norms, RecurrentGemma's
+# conv: ``Sharder.local``'s gradient rule).  The token ids are gathered
+# once, before the lookup, so the table's gradient comes out split by its
+# columns as the table is: no reduce-scatter of it
 TRAIN_MONITOR = {
-    "qwen3_8b": {"all-gather": (401, 16428838912),
-                 "all-reduce": (202, 1526735064),
+    "qwen3_8b": {"all-gather": (400, 16428834816),
+                 "all-reduce": (419, 1529348312),
                  "all-to-all": (617, 10351542272),
-                 "reduce-scatter": (616, 49540497408)},
-    "recurrentgemma_2b": {"all-gather": (345, 9567219712),
-                          "all-reduce": (341, 1887998864),
+                 "reduce-scatter": (615, 47051177984)},
+    "recurrentgemma_2b": {"all-gather": (344, 9567215616),
+                          "all-reduce": (438, 1931948944),
                           "all-to-all": (305, 3198156800),
-                          "reduce-scatter": (424, 21044920320)},
+                          "reduce-scatter": (431, 18465423360)},
 }
 
 
@@ -2501,8 +2527,8 @@ def count_prefill(res) -> dict:
 CLI_DEVICE = "cuda"
 CLI_CONFIGS = ("paper", "gnmt", "resnet", "serve", "moe-skew", "grok_1_314b",
                "llama4_maverick_400b_a17b", "codeqwen15_7b", "granite_3_2b",
-               "qwen3_8b", "granite_20b", "chameleon_34b", "musicgen_medium",
-               "recurrentgemma_2b")
+               "qwen3_8b", "granite_20b", "xlstm_1_3b", "chameleon_34b",
+               "musicgen_medium", "recurrentgemma_2b")
 CLI_MESHES = ("4x2", "2x2x2")
 CLI_ALGORITHMS = ("ring", "hierarchical")
 # the reference's summary and scale CSV headers (repro.core.export.
@@ -2519,7 +2545,11 @@ SCALE_HEADER = ("config,algorithm,devices,pods,ops,wire_bytes,ici_ms,dcn_ms,"
 # A train cell's scalar all-reduces on 2x2x2 depend on what the sweep's
 # process captured before it (DTensor caches its sharding decisions): these
 # are the counts of this sweep's order; the five transformer-backbone cells
-# swept alone in a fresh process read two more each
+# swept alone in a fresh process read two more each.  Every train cell
+# all-reduces the gradients of the weights its local steps read whole on
+# each batch shard (the norms: ``Sharder.local``'s gradient rule), and
+# gathers the token ids once, before the lookup (``layers._gather_ids``):
+# one all-gather and one reduce-scatter fewer than DTensor's own lookup
 CLI_SWEEP_CALLS = {
     ("paper", "4x2"): {"all-reduce": 4},
     ("paper", "2x2x2"): {"all-reduce": 4},
@@ -2527,37 +2557,37 @@ CLI_SWEEP_CALLS = {
     ("gnmt", "2x2x2"): {"all-gather": 17, "all-reduce": 8},
     ("resnet", "4x2"): {"all-reduce": 17},
     ("resnet", "2x2x2"): {"all-reduce": 17},
-    ("serve", "4x2"): {"all-gather": 54, "all-reduce": 26,
-                       "all-to-all": 36, "reduce-scatter": 18},
-    ("serve", "2x2x2"): {"all-gather": 66, "all-reduce": 26,
-                         "all-to-all": 24, "reduce-scatter": 6},
-    ("qwen3_8b", "4x2"): {"all-gather": 71, "all-reduce": 42,
-                          "all-to-all": 2, "reduce-scatter": 26},
-    ("qwen3_8b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
-                            "all-to-all": 2, "reduce-scatter": 26},
-    ("recurrentgemma_2b", "4x2"): {"all-gather": 115, "all-reduce": 110,
-                                   "all-to-all": 2, "reduce-scatter": 50},
-    ("recurrentgemma_2b", "2x2x2"): {"all-gather": 115, "all-reduce": 144,
-                                     "all-to-all": 2, "reduce-scatter": 50},
-    ("codeqwen15_7b", "4x2"): {"all-gather": 71, "all-reduce": 42,
-                               "all-to-all": 2, "reduce-scatter": 26},
-    ("codeqwen15_7b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
-                                 "all-to-all": 2, "reduce-scatter": 26},
-    ("granite_3_2b", "4x2"): {"all-gather": 71, "all-reduce": 42,
-                              "all-to-all": 2, "reduce-scatter": 26},
-    ("granite_3_2b", "2x2x2"): {"all-gather": 71, "all-reduce": 68,
-                                "all-to-all": 2, "reduce-scatter": 26},
-    ("granite_20b", "4x2"): {"all-gather": 95, "all-reduce": 42,
-                             "all-to-all": 2, "reduce-scatter": 26},
-    ("granite_20b", "2x2x2"): {"all-gather": 95, "all-reduce": 68,
-                               "all-to-all": 2, "reduce-scatter": 26},
-    ("chameleon_34b", "4x2"): {"all-gather": 69, "all-reduce": 41,
+    ("serve", "4x2"): {"all-gather": 54, "all-reduce": 26, "all-to-all": 36,
+                       "reduce-scatter": 18},
+    ("serve", "2x2x2"): {"all-gather": 66, "all-reduce": 26, "all-to-all": 24,
+                         "reduce-scatter": 6},
+    ("qwen3_8b", "4x2"): {"all-gather": 70, "all-reduce": 67, "all-to-all": 2,
+                          "reduce-scatter": 25},
+    ("qwen3_8b", "2x2x2"): {"all-gather": 70, "all-reduce": 101,
+                            "all-to-all": 2, "reduce-scatter": 25},
+    ("recurrentgemma_2b", "4x2"): {"all-gather": 114, "all-reduce": 131,
+                                   "all-to-all": 2, "reduce-scatter": 49},
+    ("recurrentgemma_2b", "2x2x2"): {"all-gather": 114, "all-reduce": 165,
+                                     "all-to-all": 2, "reduce-scatter": 49},
+    ("codeqwen15_7b", "4x2"): {"all-gather": 70, "all-reduce": 51,
+                               "all-to-all": 2, "reduce-scatter": 25},
+    ("codeqwen15_7b", "2x2x2"): {"all-gather": 70, "all-reduce": 77,
+                                 "all-to-all": 2, "reduce-scatter": 25},
+    ("granite_3_2b", "4x2"): {"all-gather": 70, "all-reduce": 51,
+                              "all-to-all": 2, "reduce-scatter": 25},
+    ("granite_3_2b", "2x2x2"): {"all-gather": 70, "all-reduce": 77,
+                                "all-to-all": 2, "reduce-scatter": 25},
+    ("granite_20b", "4x2"): {"all-gather": 94, "all-reduce": 51,
+                             "all-to-all": 2, "reduce-scatter": 25},
+    ("granite_20b", "2x2x2"): {"all-gather": 94, "all-reduce": 77,
+                               "all-to-all": 2, "reduce-scatter": 25},
+    ("chameleon_34b", "4x2"): {"all-gather": 69, "all-reduce": 66,
                                "reduce-scatter": 25},
-    ("chameleon_34b", "2x2x2"): {"all-gather": 69, "all-reduce": 66,
+    ("chameleon_34b", "2x2x2"): {"all-gather": 69, "all-reduce": 99,
                                  "reduce-scatter": 25},
-    ("musicgen_medium", "4x2"): {"all-gather": 69, "all-reduce": 41,
+    ("musicgen_medium", "4x2"): {"all-gather": 69, "all-reduce": 50,
                                  "reduce-scatter": 25},
-    ("musicgen_medium", "2x2x2"): {"all-gather": 69, "all-reduce": 66,
+    ("musicgen_medium", "2x2x2"): {"all-gather": 69, "all-reduce": 75,
                                    "reduce-scatter": 25},
     # the hot expert's dispatch and combine, one all_to_all_single each
     ("moe-skew", "4x2"): {"all-to-all": 2},
@@ -2565,18 +2595,24 @@ CLI_SWEEP_CALLS = {
     # the reduced MoE train cells (4 experts over model 2): the weight
     # gathers of each block's local steps and, in the backward, the
     # gradients the batch and expert shards share, reduced
-    ("grok_1_314b", "4x2"): {"all-gather": 71, "all-reduce": 60,
-                             "all-to-all": 2, "reduce-scatter": 34},
-    ("grok_1_314b", "2x2x2"): {"all-gather": 71, "all-reduce": 98,
-                               "all-to-all": 2, "reduce-scatter": 34},
-    ("llama4_maverick_400b_a17b", "4x2"): {"all-gather": 71,
-                                           "all-reduce": 60,
+    ("grok_1_314b", "4x2"): {"all-gather": 70, "all-reduce": 69,
+                             "all-to-all": 2, "reduce-scatter": 33},
+    ("grok_1_314b", "2x2x2"): {"all-gather": 70, "all-reduce": 107,
+                               "all-to-all": 2, "reduce-scatter": 33},
+    ("llama4_maverick_400b_a17b", "4x2"): {"all-gather": 70, "all-reduce": 69,
                                            "all-to-all": 2,
-                                           "reduce-scatter": 34},
-    ("llama4_maverick_400b_a17b", "2x2x2"): {"all-gather": 71,
-                                             "all-reduce": 98,
+                                           "reduce-scatter": 33},
+    ("llama4_maverick_400b_a17b", "2x2x2"): {"all-gather": 70,
+                                             "all-reduce": 107,
                                              "all-to-all": 2,
-                                             "reduce-scatter": 34},
+                                             "reduce-scatter": 33},
+    # the reduced xLSTM train cell: each block's cell on local shards
+    # (two whole heads a rank on model 2), the sLSTM's r_g gathered to
+    # them, one op a layer for each loop
+    ("xlstm_1_3b", "4x2"): {"all-gather": 78, "all-reduce": 88,
+                            "all-to-all": 8, "reduce-scatter": 35},
+    ("xlstm_1_3b", "2x2x2"): {"all-gather": 78, "all-reduce": 104,
+                              "all-to-all": 8, "reduce-scatter": 35},
 }
 # the scale curve's fleet sizes: the all-to-alls of a cuda capture hold
 # 1.0 M COO entries at 4096 devices and 4.2 M at 16384, which the
@@ -2606,8 +2642,9 @@ def cli(*args: str, expect: int = 0) -> str:
 # the dry-run phase: ``python -m repro_torch dryrun`` invocations, run side
 # by side (each its own fake process group of 256 or 512 ``cuda`` ranks),
 # (archs, shape, mesh): every ported architecture's decode_32k on both
-# production meshes, RecurrentGemma-2B's long_500k (through ``--mesh
-# both``), and Qwen3-8B's prefill_32k and train_4k on the single pod
+# production meshes, the two long-context architectures' long_500k
+# (xLSTM-1.3B and RecurrentGemma-2B, through ``--mesh both``), and
+# Qwen3-8B's prefill_32k and train_4k on the single pod
 def dryrun_runs() -> tuple:
     from repro_torch import configs
 
@@ -2618,7 +2655,7 @@ def dryrun_runs() -> tuple:
     return ((moe, "decode_32k", "single"), (moe, "decode_32k", "multi"),
             (dense, "decode_32k", "single"),
             (dense, "decode_32k", "multi"),
-            (("recurrentgemma_2b",), "long_500k", "both"),
+            (configs.LONG_CONTEXT_ARCHS, "long_500k", "both"),
             (("qwen3_8b",), "prefill_32k", "single"),
             (("qwen3_8b",), "train_4k", "single"))
 
@@ -2916,7 +2953,7 @@ def main() -> None:
     seconds["lm-train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     reports = {arch: run_monitor(arch) for arch in ARCHS}
-    for arch in BACKBONE_ARCHS + MOE_ARCHS:
+    for arch in BACKBONE_ARCHS + SSM_ARCHS + MOE_ARCHS:
         run_monitor(arch)
     for arch in ARCHS:
         run_train_monitor(arch)

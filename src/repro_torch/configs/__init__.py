@@ -1,12 +1,12 @@
 """Architecture registry (port of ``repro.configs``): one module per
 architecture, each exporting ``CONFIG`` (the published configuration),
 ``REDUCED`` (same family at test scale) and ``TRAIN`` (its train preset).
-Ported so far, in the reference's order: the ``moe`` ``grok_1_314b`` and
-``llama4_maverick_400b_a17b``, the dense ``codeqwen15_7b``,
-``granite_3_2b``, ``qwen3_8b`` and ``granite_20b``, the ``vlm``
-``chameleon_34b`` and ``audio`` ``musicgen_medium`` (both read stub
-embeddings), and the hybrid ``recurrentgemma_2b``.  The reference's
-``xlstm_1_3b`` waits for its port.
+Every architecture of the reference is ported, in its order: the ``moe``
+``grok_1_314b`` and ``llama4_maverick_400b_a17b``, the dense
+``codeqwen15_7b``, ``granite_3_2b``, ``qwen3_8b`` and ``granite_20b``,
+the ``ssm`` ``xlstm_1_3b``, the ``vlm`` ``chameleon_34b`` and ``audio``
+``musicgen_medium`` (both read stub embeddings), and the hybrid
+``recurrentgemma_2b``.
 
 ``input_specs(cfg, shape)`` builds ``torch.empty`` stand-ins for every
 input of the step a shape exercises (train step / prefill / decode);
@@ -27,13 +27,14 @@ ARCH_IDS = (
     "granite_3_2b",
     "qwen3_8b",
     "granite_20b",
+    "xlstm_1_3b",
     "chameleon_34b",
     "musicgen_medium",
     "recurrentgemma_2b",
 )
 
 # archs whose attention is not quadratic-full -> they also run long_500k
-LONG_CONTEXT_ARCHS = ("recurrentgemma_2b",)
+LONG_CONTEXT_ARCHS = ("xlstm_1_3b", "recurrentgemma_2b")
 
 
 def get(arch: str):

@@ -14,7 +14,9 @@ hook over every aten (and custom) op that reaches the dispatcher:
   blocks -- masks remove no dot work -- or, with a window and more than one
   512-row query chunk, ``window + 512`` keys a chunk), flash decode the
   whole cache (``decode_attention``), RMSNorm and the RG-LRU scan nothing
-  (no dot).  Eager code runs every loop iteration, so trip counts come for
+  (no dot).  The xLSTM ops (no kernel behind them) count what the
+  reference's HLO does: the mLSTM parallel form every (query, key) pair,
+  the sLSTM loop its recurrent products times its trip count.  Eager code runs every loop iteration, so trip counts come for
   free.
 * **bytes** -- each op's tensor inputs plus its tensor outputs, once each:
   the traffic of the eager run, which fuses nothing.  View ops (whose
@@ -54,6 +56,8 @@ from repro_torch.kernels.flash_attention import ops as _fa_ops  # noqa: F401
 from repro_torch.kernels.flash_decode import ops as _fd_ops  # noqa: F401
 from repro_torch.kernels.rglru import ops as _rg_ops  # noqa: F401
 from repro_torch.kernels.rmsnorm import ops as _rn_ops  # noqa: F401
+from repro_torch.models import mlstm_parallel as _ml_ops  # noqa: F401
+from repro_torch.models import slstm_scan as _sl_ops  # noqa: F401
 
 # the reference's ``attend`` query chunk (``chunked_attention``'s default)
 Q_CHUNK = 512
@@ -108,6 +112,45 @@ def no_dot_flop(*args, out_shape=None, **kwargs) -> int:
     """RMSNorm and the RG-LRU scan, forward and backward, hold no dot: 0,
     as in the HLO count."""
     return 0
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_parallel)
+def mlstm_parallel_flop(q_shape, k_shape, v_shape, log_f_shape=None,
+                        itilde_shape=None, chunk=256, *args, out_shape=None,
+                        **kwargs) -> int:
+    """``4·B·S·S·nh·dh`` (the score and the value products over every
+    (query, key) pair): the reference's single block, and its chunked scan
+    over every (query chunk, key chunk) pair, masks remove no dot work."""
+    b, s, nh, dh = q_shape
+    return 4 * b * s * s * nh * dh
+
+
+@register_flop_formula(torch.ops.repro_torch.mlstm_parallel_bwd)
+def mlstm_parallel_bwd_flop(dh_shape, q_shape, *args, out_shape=None,
+                            **kwargs) -> int:
+    """Twice the forward's products: each product's transpose has two."""
+    return 2 * mlstm_parallel_flop(q_shape, q_shape, q_shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan)
+def slstm_scan_flop(xg_shape, r_shape, state_shape=None, chunk=256, *args,
+                    out_shape=None, **kwargs) -> int:
+    """The sLSTM loop's recurrent products: ``2·4·B·S·nh·dh·dh``, a
+    ``(B, dh) x (dh, dh)`` product a gate, a head and a step, as the
+    reference's scan body counts them times its trip count (the gate
+    pre-activations are ordinary matmuls outside the op)."""
+    b, s, g, d = xg_shape
+    return 2 * g * b * s * d * r_shape[2]
+
+
+@register_flop_formula(torch.ops.repro_torch.slstm_scan_bwd)
+def slstm_scan_bwd_flop(dhs_shape, dcarry_shape, xg_shape, r_shape,
+                        state_shape=None, chunk=256, *args, out_shape=None,
+                        **kwargs) -> int:
+    """Three times the forward's products: the reference's rematted
+    backward runs each chunk's forward again, then its transpose's two
+    products (the hidden state's and the recurrent matrices' gradients)."""
+    return 3 * slstm_scan_flop(xg_shape, r_shape)
 
 
 _PROPAGATE_CODE: list = []
@@ -210,4 +253,5 @@ class OpCostMode(TorchDispatchMode):
 
 __all__ = ["OpCostMode", "OpCounter", "Q_CHUNK", "flash_attention_flop",
            "flash_decode_flop", "flash_decode_partial_flop",
-           "in_sharding_propagation"]
+           "in_sharding_propagation", "mlstm_parallel_bwd_flop",
+           "mlstm_parallel_flop", "slstm_scan_bwd_flop", "slstm_scan_flop"]

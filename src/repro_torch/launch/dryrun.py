@@ -262,9 +262,11 @@ def capture_cell(arch: str, shape_name: str, mesh, *, opt_name=None,
 
 def cache_bytes_per_device(cfg, shape, mesh_shape, axis_names) -> int:
     """One device's bytes of ``cfg``'s decode cache at ``shape`` (batch
-    ``global_batch``, ``seq_len`` slots, bf16) on a mesh of
-    ``mesh_shape``, by arithmetic: each leaf's bytes over the mesh axes
-    the Sharder gives its dims (the decode cell's ``alias_bytes``)."""
+    ``global_batch``; ``seq_len`` bf16 slots of an attention cache, or a
+    recurrent model's fp32 states, whose size ``seq_len`` leaves as it is)
+    on a mesh of ``mesh_shape``, by arithmetic: each leaf of
+    ``cache_shapes`` over the mesh axes the Sharder gives its dims (the
+    decode cell's ``alias_bytes``)."""
     from types import SimpleNamespace
 
     shd = Sharder(SimpleNamespace(mesh_dim_names=tuple(axis_names),

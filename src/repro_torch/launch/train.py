@@ -8,7 +8,8 @@ of the same train step on a fake mesh (port of ``repro.launch.train``).
     PYTHONPATH=src python -m repro_torch.launch.train --reduced \\
         --device cpu --steps 4 --ckpt-dir /tmp/ck --resume --report r.json
 
-It builds ``--arch`` (``qwen3_8b`` or ``recurrentgemma_2b``) at its
+It builds ``--arch`` (``qwen3_8b``, ``recurrentgemma_2b`` or
+``xlstm_1_3b``, whose sLSTM loop's backward is plain PyTorch) at its
 published width and depth (``--layers`` cuts the depth, ``--reduced``
 takes the test-scale config), fp32 parameters from ``--seed`` drawn on the
 device, AdamW (peak ``--lr``, 10 warm-up steps, cosine decay over
@@ -147,7 +148,7 @@ def monitor(cfg, *, ocfg: OptConfig, tcfg: TrainConfig, mesh_shape=(2, 2),
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="recurrentgemma_2b",
-                    choices=("qwen3_8b", "recurrentgemma_2b"))
+                    choices=("qwen3_8b", "recurrentgemma_2b", "xlstm_1_3b"))
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--seq-len", type=int, default=64)

@@ -7,6 +7,7 @@ reference's weight layouts (``x @ w`` with ``w`` as ``(in, out)``).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -55,8 +56,41 @@ def norm_spec(cfg: ModelConfig, stacked: int = 0,
 def embed(params, tokens, cfg: ModelConfig, shd):
     """Token embedding lookup with a vocab-sharded table."""
     w = params["tok"].to(getattr(torch, cfg.compute_dtype))
+    if shd.mesh is not None and hasattr(tokens, "placements"):
+        tokens = _gather_ids(shd, tokens, w)
     out = F.embedding(tokens, w)
     return shd.constraint(out, ("batch", "seq", None))
+
+
+def _gather_ids(shd, tokens, w):
+    """The ids, gathered over the mesh dims that shard the table's embed
+    dim where DTensor would gather them there.
+
+    On such a dim DTensor either gathers the ids (the table stays split by
+    columns) or gathers the table, whichever moves fewer bytes.  When it
+    gathers the ids of a vocab-sharded table it masks the vocab shards
+    with the ungathered ids (a shape mismatch on a real 2-D mesh; a
+    capture never applies the mask), so the port gathers them itself in
+    that case: the same collective, issued before the lookup.  The bytes
+    compared are DTensor's: each tensor's gathered size, divided over its
+    other sharded dims.  A table whose vocab is whole is left to DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if Shard(0) not in w.placements:
+        return tokens
+    sizes = shd.mesh.shape
+    dims = [i for i, p in enumerate(w.placements) if p == Shard(1)]
+
+    def gathered(t):
+        other = math.prod(sizes[i] for i, p in enumerate(t.placements)
+                          if isinstance(p, Shard) and i not in dims)
+        return t.numel() * t.element_size() / other
+
+    if not dims or gathered(tokens) > gathered(w):
+        return tokens
+    return tokens.redistribute(shd.mesh, [
+        Replicate() if i in dims else p
+        for i, p in enumerate(tokens.placements)])
 
 
 def mlp(params, x, cfg: ModelConfig, shd):

@@ -125,10 +125,14 @@ def rglru_apply(p, x, cfg: ModelConfig, shd, state: Optional[dict] = None):
 
 
 def temporal_conv(p, x, cfg: ModelConfig, shd,
-                  prev: Optional[torch.Tensor] = None):
+                  prev: Optional[torch.Tensor] = None, channel: str = "rnn"):
     """Causal depthwise conv of width ``cw`` over x (B,S,Dr), on local
     shards.  ``prev``: the (B, cw-1, Dr) decode buffer (zeros when None).
-    Returns ``(out (B,S,Dr), new buffer (B,cw-1,Dr))``."""
+    ``channel`` is the logical axis of the channels (RG-LRU's ``rnn``,
+    xLSTM's mLSTM ``inner``): x is laid out ``("batch", "seq", channel)``,
+    ``conv_w`` ``("conv", channel)``, ``conv_b`` ``(channel,)`` and the
+    buffer ``("batch", None, channel)``.  Returns ``(out (B,S,Dr), new
+    buffer (B,cw-1,Dr))``."""
     cw = cfg.conv_width
 
     def conv(x, w, b, prev):
@@ -141,8 +145,8 @@ def temporal_conv(p, x, cfg: ModelConfig, shd,
         return out + b.to(x.dtype), xp[:, s:]
 
     return shd.local(conv, (x, p["conv_w"], p["conv_b"], prev),
-                     (REC_AXES, ("conv", "rnn"), ("rnn",),
-                      rec_state_axes()["conv"]), out=(0, 0))
+                     (("batch", "seq", channel), ("conv", channel),
+                      (channel,), ("batch", None, channel)), out=(0, 0))
 
 
 def recurrent_block(p, x, cfg: ModelConfig, shd,

@@ -165,8 +165,10 @@ class Sharder:
         argument, None to keep its input placements) says how each local
         input's gradient is laid out: ``Partial()`` on a mesh dim where the
         input is replicated but the ranks' work differs (a weight read by
-        each batch shard), so the backward reduces it.  Without a mesh this
-        is ``fn(*args)``.
+        each batch shard), so the backward reduces it.  Not given, it is
+        worked out by that rule (:func:`grad_placements_for`): an input
+        replicated on a mesh dim that shards an output takes ``Partial()``
+        there.  Without a mesh this is ``fn(*args)``.
         """
         if self.mesh is None:
             return fn(*args)
@@ -188,11 +190,35 @@ class Sharder:
         else:
             out_pl = (in_pl[out] if isinstance(out, int)
                       else tuple(in_pl[j] for j in out))
-        grad_pl = None
         if grad_placements is not None:
             grad_pl = [g if g is not None else p
                        for g, p in zip(grad_placements, in_pl)]
+        else:
+            grad_pl = grad_placements_for(in_pl, out_pl)
         return local_map(fn, out_placements=out_pl, in_placements=in_pl,
                          in_grad_placements=grad_pl,
                          redistribute_inputs=True,
                          device_mesh=self.mesh)(*args)
+
+
+def grad_placements_for(in_pl: list, out_pl) -> list:
+    """Each local input's gradient placements, worked out from the input
+    and output placements of a :meth:`Sharder.local` step (``in_pl`` one
+    list a DTensor input, None for the others; ``out_pl`` one output's
+    list or a tuple of them, None for a non-tensor output).
+
+    Where an input is ``Replicate`` on a mesh dim that shards an output,
+    each rank's work there differs (a weight read by its own batch rows,
+    a kv head read by its own query heads), so its local gradient is one
+    rank's share: ``Partial()`` on that dim, which the backward sums.
+    Every other dim keeps the input's placement.
+    """
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    outs = [out_pl] if isinstance(out_pl, list) else list(out_pl or ())
+    sharded = {i for pl in outs if pl is not None
+               for i, p in enumerate(pl) if isinstance(p, Shard)}
+    return [None if pl is None else
+            [Partial() if i in sharded and isinstance(p, Replicate) else p
+             for i, p in enumerate(pl)]
+            for pl in in_pl]

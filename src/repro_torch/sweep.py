@@ -32,7 +32,6 @@ builder's defaults are the reference's sweep sizes; ``launch.paper`` and
   is in the reference, invisible in the output.
 
 Capture meshes are ``cuda`` unless the caller passes ``device="cpu"``.
-The reference's ``xlstm_1_3b`` cell waits for that model's port.
 """
 from __future__ import annotations
 

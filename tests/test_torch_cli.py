@@ -31,8 +31,8 @@ def test_configs_lists_the_four_sweep_configs(capsys):
     assert [r.split("|")[0].strip() for r in rows] == \
         ["paper", "gnmt", "resnet", "serve", "moe-skew", "grok_1_314b",
          "llama4_maverick_400b_a17b", "codeqwen15_7b", "granite_3_2b",
-         "qwen3_8b", "granite_20b", "chameleon_34b", "musicgen_medium",
-         "recurrentgemma_2b"]
+         "qwen3_8b", "granite_20b", "xlstm_1_3b", "chameleon_34b",
+         "musicgen_medium", "recurrentgemma_2b"]
 
 
 def test_sweep_cold_then_warm(tmp_path, cache, capsys):

@@ -94,8 +94,8 @@ def test_config_modules_match_reference(arch):
 def test_build_model_by_family():
     """``dense``/``vlm``/``audio`` run on the transformer backbone; a
     ``moe`` config builds one too, with MoE blocks in place of the MLPs;
-    ``ssm`` waits for its port with a message naming the family."""
-    from repro_torch.models import TransformerLM
+    ``ssm`` builds the xLSTM model."""
+    from repro_torch.models import TransformerLM, XLSTMLM
 
     for arch in ARCHS:
         assert isinstance(build_model(configs.config(arch)), TransformerLM)
@@ -108,8 +108,7 @@ def test_build_model_by_family():
     assert layer["moe"]["wi"].shape == (moe.n_layers, 8, moe.d_model,
                                         2 * moe.d_ff)
     ssm = dataclasses.replace(configs.config("qwen3_8b"), family="ssm")
-    with pytest.raises(NotImplementedError, match="'ssm'"):
-        build_model(ssm)
+    assert isinstance(build_model(ssm), XLSTMLM)
 
 
 @pytest.mark.parametrize("arch", ["chameleon_34b", "musicgen_medium"])
@@ -331,31 +330,31 @@ def _kinds(summary):
 # on the fake CPU 4x2 mesh
 PORT_TABLES = {
     "codeqwen15_7b": {
-        "train": {"all-gather": (73, 9902080), "all-reduce": (30, 1445960),
-            "reduce-scatter": (26, 1572864)},
+        "train": {"all-gather": (72, 9900032), "all-reduce": (39, 1450568),
+            "reduce-scatter": (25, 1441792)},
         "prefill": {"all-gather": (39, 2037760), "all-reduce": (9, 294912),
             "reduce-scatter": (1, 8192)},
         "decode": {"all-gather": (51, 155776), "all-reduce": (17, 18432),
             "reduce-scatter": (17, 65536)},
     },
     "granite_3_2b": {
-        "train": {"all-gather": (73, 9902080), "all-reduce": (30, 1445960),
-            "reduce-scatter": (26, 1572864)},
+        "train": {"all-gather": (72, 9900032), "all-reduce": (39, 1450568),
+            "reduce-scatter": (25, 1441792)},
         "prefill": {"all-gather": (39, 2037760), "all-reduce": (9, 294912),
             "reduce-scatter": (1, 8192)},
         "decode": {"all-gather": (51, 155776), "all-reduce": (17, 18432),
             "reduce-scatter": (17, 65536)},
     },
     "granite_20b": {
-        "train": {"all-gather": (97, 10590208), "all-reduce": (30, 1445960),
-            "reduce-scatter": (26, 1474560)},
+        "train": {"all-gather": (96, 10588160), "all-reduce": (39, 1450568),
+            "reduce-scatter": (25, 1343488)},
         "prefill": {"all-gather": (39, 1660928), "all-reduce": (9, 294912),
             "reduce-scatter": (1, 8192)},
         "decode": {"all-gather": (51, 131200), "all-reduce": (17, 18432),
             "reduce-scatter": (17, 53248)},
     },
     "chameleon_34b": {
-        "train": {"all-gather": (69, 9633792), "all-reduce": (29, 1380424),
+        "train": {"all-gather": (69, 9633792), "all-reduce": (54, 1388104),
             "reduce-scatter": (25, 1441792)},
         "prefill": {"all-gather": (37, 1968128), "all-reduce": (8, 262144),
             "reduce-scatter": (1, 8192)},
@@ -363,7 +362,7 @@ PORT_TABLES = {
             "reduce-scatter": (17, 57344)},
     },
     "musicgen_medium": {
-        "train": {"all-gather": (69, 9633792), "all-reduce": (29, 1380424),
+        "train": {"all-gather": (69, 9633792), "all-reduce": (38, 1385032),
             "reduce-scatter": (25, 1441792)},
         "prefill": {"all-gather": (37, 1968128), "all-reduce": (8, 262144),
             "reduce-scatter": (1, 8192)},
@@ -371,7 +370,7 @@ PORT_TABLES = {
             "reduce-scatter": (17, 65536)},
     },
     "granite_3_2b@v49155": {
-        "train": {"all-gather": (73, 108668928), "all-reduce": (26, 13894456),
+        "train": {"all-gather": (73, 108668928), "all-reduce": (35, 13899064),
             "reduce-scatter": (27, 227816960)},
         "prefill": {"all-gather": (40, 2068480), "all-reduce": (8, 262144),
             "reduce-scatter": (1, 1572960)},

@@ -125,13 +125,19 @@ def _port_branch(cfg, b, s):
     return _branch(shd)
 
 
+# the architectures with attention blocks (xLSTM has none)
+ATTN_ARCHS = tuple(a for a in configs.ARCH_IDS
+                   if "attn" in configs.config(a).block_pattern)
+
+
 @pytest.mark.parametrize("shape", ["train_4k", "prefill_32k"])
-@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+@pytest.mark.parametrize("arch", ATTN_ARCHS)
 def test_branch_on_the_production_mesh(arch, shape):
     """Both packages take the same branch at every (arch, shape) cell with
-    a sequence (decode steps read the cache); only MusicGen-medium (24
-    heads) and RecurrentGemma-2B (10) at ``train_4k`` take it, the rest
-    divide 16 or exceed the 2 GiB score block."""
+    a sequence (decode steps read the cache) of every architecture with
+    attention; only MusicGen-medium (24 heads) and RecurrentGemma-2B (10)
+    at ``train_4k`` take it, the rest divide 16 or exceed the 2 GiB score
+    block."""
     cfg = configs.config(arch)
     sh = SHAPES_BY_NAME[shape]
     b, s = sh.global_batch, sh.seq_len
@@ -210,7 +216,7 @@ def _three_heads(cfgs):
 # kind -> (calls, payload bytes per device) by step: the port's on the fake
 # CPU 4x2 mesh and the reference's on its 4x2 host mesh
 PORT_CP = {
-    "train": {"all-gather": (109, 11534336), "all-reduce": (29, 1380424),
+    "train": {"all-gather": (109, 11534336), "all-reduce": (46, 1778248),
               "reduce-scatter": (25, 1425408)},
     "prefill": {"all-gather": (45, 1935360), "all-reduce": (8, 262144),
                 "reduce-scatter": (1, 8192)},
@@ -226,11 +232,15 @@ REF_CP = {
 }
 # (step, kind, per-device dims, payload bytes) -> calls that only one of
 # the port's two paths issues: the branch gathers the attention output's
-# sequence shards (and, in the backward, their gradient's); the padded path
-# gathers the padded heads' shards (2 of 4 heads a model shard) instead
+# sequence shards (and, in the backward, their gradient's) and sums the
+# gradients of k and v over ``model`` (replicated there, each shard's
+# queries read them all: ``Partial`` by the local step's gradient rule);
+# the padded path gathers the padded heads' shards (2 of 4 heads a model
+# shard) instead
 ONLY_CP = {("prefill", "all-gather", (4, 16, 48), 6144): 4,
            ("train", "all-gather", (4, 32, 48), 12288): 8,
-           ("train", "all-gather", (4, 32, 3, 16), 12288): 4}
+           ("train", "all-gather", (4, 32, 3, 16), 12288): 4,
+           ("train", "all-reduce", (2, 64, 3, 16), 12288): 8}
 ONLY_PADDED = {("prefill", "all-gather", (4, 32, 2, 16), 8192): 4,
                ("train", "all-gather", (4, 64, 2, 16), 16384): 20}
 

@@ -207,7 +207,7 @@ def test_mesh_specs_match_reference():
         "chameleon_34b", "codeqwen15_7b", "gnmt", "granite_20b",
         "granite_3_2b", "grok_1_314b", "llama4_maverick_400b_a17b",
         "moe-skew", "musicgen_medium", "paper", "qwen3_8b",
-        "recurrentgemma_2b", "resnet", "serve"]
+        "recurrentgemma_2b", "resnet", "serve", "xlstm_1_3b"]
     assert all(ref_sweep.available_configs()[n].version == s.version
                for n, s in sweep.available_configs().items())
 

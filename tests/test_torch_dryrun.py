@@ -146,6 +146,52 @@ def test_production_meshes_in_children(tmp_path):
                 assert mem["alias_bytes"] == 0
 
 
+# the reduced xLSTM's cells: (shapes, --mesh) of each dryrun call
+XLSTM_RUNS = ((("decode_32k", "long_500k"), "both"),
+              (("prefill_32k", "train_4k"), "single"))
+
+
+def test_xlstm_cells_in_children(tmp_path):
+    """The reduced xLSTM's decode_32k and long_500k cells on both
+    production meshes (``--mesh both``: one child a mesh), prefill_32k and
+    train_4k on 16x16: every cell ok; a decode cell's bytes updated in
+    place are its recurrent states, O(1) in the 32768 or 524288 slots,
+    equal to :func:`dryrun.cache_bytes_per_device`.  The mLSTM parallel
+    form and the sLSTM loop run as one op each, so the prefill_32k cell
+    (2048 query chunks of the reduced 16 a layer) traces in seconds, where
+    the same loop run op by op records about 50 ops a chunk and traced
+    for minutes."""
+    child = _child("sys.exit(dryrun.main(sys.argv[1:]))")
+    calls = [["--arch", "xlstm_1_3b", "--shape", ",".join(shapes), "--mesh",
+              mesh, "--device", "cpu", "--out", str(tmp_path)]
+             for shapes, mesh in XLSTM_RUNS]
+    # the parent runs the single-mesh call itself: the reduced configs too
+    parent = _child(f"""
+        dryrun.CHILD = [sys.executable, "-c", {child!r}]
+        sys.exit(max(dryrun.main(args) for args in {calls!r}))
+        """)
+    proc = _run(parent)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    cfg = configs.config("xlstm_1_3b", reduced=True)
+    meshes = {"single": ((16, 16), ("data", "model")),
+              "multi": ((2, 16, 16), ("pod", "data", "model"))}
+    for shapes, mesh in XLSTM_RUNS:
+        for mname in (("single", "multi") if mesh == "both" else (mesh,)):
+            shape, axes = meshes[mname]
+            for sname in shapes:
+                r = json.loads((tmp_path / f"xlstm_1_3b_{sname}_{mname}"
+                                           ".json").read_text())
+                assert r["ok"] and r["trace_s"] > 0, (sname, mname)
+                mem = r["memory"]
+                if SHAPES_BY_NAME[sname].kind == "decode":
+                    want = dryrun.cache_bytes_per_device(
+                        cfg, SHAPES_BY_NAME[sname], shape, axes)
+                    assert mem["alias_bytes"] == want > 0, (sname, mname)
+                elif sname == "prefill_32k":
+                    assert mem["alias_bytes"] == 0
+                    assert r["trace_s"] < 30, r["trace_s"]
+
+
 def test_skip_existing_builds_no_mesh(tmp_path, capsys):
     """``--skip-existing`` skips a cell whose JSON is there before any
     mesh or capture."""
@@ -186,6 +232,16 @@ CACHE_BYTES = [
     # 18 conv (8, 3, 2560/16) + 18 h (8, 2560/16), + 4
     ("recurrentgemma_2b", (16, 16), 8 * 2 * 8 * 128 * 1 * 256 * 2
      + 18 * 8 * 3 * 160 * 4 + 18 * 8 * 160 * 4 + 4),
+    # xLSTM-1.3B: no slots, 24 superblocks' fp32 states, ``inner`` over
+    # model 16: mLSTM C (8, 4, 1024/16, 1024), n (8, 4, 1024/16), m (8, 4),
+    # conv (8, 3, 4096/16); sLSTM c, n, m, h (8, 2048/16); + 4
+    ("xlstm_1_3b", (16, 16), 24 * (8 * 4 * 64 * 1024 * 4 + 8 * 4 * 64 * 4
+                                   + 8 * 4 * 4 + 8 * 3 * 256 * 4
+                                   + 4 * 8 * 128 * 4) + 4),
+    # two pods: batch 128/32
+    ("xlstm_1_3b", (2, 16, 16), 24 * (4 * 4 * 64 * 1024 * 4 + 4 * 4 * 64 * 4
+                                      + 4 * 4 * 4 + 4 * 3 * 256 * 4
+                                      + 4 * 4 * 128 * 4) + 4),
 ]
 
 
@@ -250,7 +306,7 @@ PORT_DRY = {
                     "all-reduce": (9, 1207959552),
                     "reduce-scatter": (1, 32768)},
     "train_4k": {"all-gather": (250, 17186029568),
-                 "all-reduce": (87, 2961178744),
+                 "all-reduce": (137, 2961194104),
                  "reduce-scatter": (52, 3407872)},
 }
 REF_DRY = {
@@ -267,7 +323,7 @@ REF_DRY = {
 }
 # the port's train_4k cell at 1 microbatch: the loop's collectives once
 PORT_TRAIN_1 = {"all-gather": (125, 17182949376),
-                "all-reduce": (46, 2961178712),
+                "all-reduce": (71, 2961186392),
                 "reduce-scatter": (26, 1703936)}
 TRAIN = {"microbatches": 2}
 # the same cells' ``memory`` (argument, output, temp, alias bytes a device):

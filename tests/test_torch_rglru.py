@@ -444,8 +444,9 @@ def test_build_model_dispatches_on_family():
     assert (model.n_super, model.n_tail) == (8, 2)
     n = sum(math.prod(s.shape) for _, s in _leaves(model.specs()))
     assert abs(n - 3.55e9) < 0.01e9        # 3.550 B parameters
-    with pytest.raises(NotImplementedError, match="ssm"):
-        build_model(dataclasses.replace(full, family="ssm"))
+    # the ssm family is xLSTM's (tests/test_torch_xlstm.py)
+    assert not isinstance(build_model(dataclasses.replace(
+        full, family="ssm", n_layers=2)), GriffinLM)
 
 
 @pytest.mark.parametrize("variant", list(VARIANTS))

@@ -17,6 +17,17 @@ Why the per-kind tables differ (both pinned):
   adds the leaves' partial sums of squares for the gradient norm without
   communicating, so the norm costs no all-reduce a leaf; the reference's
   scalar reductions are fused into its other all-reduces.
+* **Replicated weights' gradients**: a weight that a local step reads
+  whole (every RMSNorm weight, RecurrentGemma's conv) gets one batch
+  shard's gradient on each rank, which the step marks ``Partial`` so the
+  backward sums it: one all-reduce over ``data`` a norm weight, plus one
+  over ``model`` for the qk-norms, whose heads are split there (``qwen3_8b``
+  25, ``recurrentgemma_2b`` 21).  GSPMD reduces the same gradients, folded
+  into its other all-reduces.
+* **Token ids**: the lookup gathers the ids over ``data`` before it runs
+  (``layers._gather_ids``), so the embedding's backward reads them
+  gathered: one all-gather (the ids, 2048 bytes) and one reduce-scatter
+  fewer than when DTensor gathered them inside the lookup.
 * **Recomputation**: a recomputed forward re-issues its own collectives
   in the backward: the ``qwen3_8b`` cell gathers 69 times with remat
   ``none``, 73 with the cell's ``dots`` (which keeps the matmuls' outputs)
@@ -69,11 +80,11 @@ FIXTURE = Path(__file__).parent / "fixtures" / "translation_report.json"
 
 # the port's cells on the CPU 4x2 mesh: kind -> (calls, payload bytes)
 PORT_CALLS = {
-    "qwen3_8b": {"all-gather": (73, 9902080), "all-reduce": (30, 1445960),
-                 "reduce-scatter": (26, 1572864)},
-    "recurrentgemma_2b": {"all-gather": (117, 14899200),
-                          "all-reduce": (72, 3021896),
-                          "reduce-scatter": (50, 4210688)},
+    "qwen3_8b": {"all-gather": (72, 9900032), "all-reduce": (55, 1453640),
+                 "reduce-scatter": (25, 1441792)},
+    "recurrentgemma_2b": {"all-gather": (116, 14897152),
+                          "all-reduce": (93, 3033672),
+                          "reduce-scatter": (49, 4079616)},
 }
 # the reference's cells on its 4x2 host mesh (GSPMD)
 REF_CALLS = {
