@@ -198,11 +198,17 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               xLSTM-1.3B's and RecurrentGemma-2B's long_500k on both
               (``--mesh both``), and
               Qwen3-8B's prefill_32k and train_4k on the single pod, each
-              at its published size.  Every cell must be ``ok``, and a
-              decode cell's cache bytes per device must equal
-              ``dryrun.cache_bytes_per_device`` (Qwen3-8B's 2.42 GB on
-              16x16); each cell's trace seconds and total bytes a device
-              are printed.
+              at its published size; and, under ``--sp --tag sp`` (the
+              Sharder's ``seq -> model`` rule), Qwen3-8B's prefill_32k and
+              train_4k, RecurrentGemma-2B's prefill_32k (conv, scan and
+              local attention over sequence shards) and xLSTM-1.3B's
+              prefill_32k (both recurrences) on the single pod.  Every
+              cell must be ``ok``, and a decode cell's cache bytes per
+              device must equal ``dryrun.cache_bytes_per_device``
+              (Qwen3-8B's 2.42 GB on 16x16); each cell's trace seconds and
+              total bytes a device are printed, and each ``--sp`` cell's
+              collectives by kind (calls and bytes) beside its cell
+              without ``--sp`` where the phase runs one.
 
 Then one JSON line with every kernel's numbers (flash decode's with its
 ``kv_seq`` rank share, whose ``launches`` are the partial op's in the
@@ -2639,12 +2645,19 @@ def cli(*args: str, expect: int = 0) -> str:
     return proc.stdout
 
 
+# the dry run's cells under ``--sp --tag sp`` (the Sharder's ``seq ->
+# model`` rule), each in a process of its own on the single pod
+SP_CELLS = (("qwen3_8b", "prefill_32k"), ("qwen3_8b", "train_4k"),
+            ("recurrentgemma_2b", "prefill_32k"),
+            ("xlstm_1_3b", "prefill_32k"))
+
+
 # the dry-run phase: ``python -m repro_torch dryrun`` invocations, run side
 # by side (each its own fake process group of 256 or 512 ``cuda`` ranks),
-# (archs, shape, mesh): every ported architecture's decode_32k on both
+# (archs, shape, mesh, sp): every ported architecture's decode_32k on both
 # production meshes, the two long-context architectures' long_500k
-# (xLSTM-1.3B and RecurrentGemma-2B, through ``--mesh both``), and
-# Qwen3-8B's prefill_32k and train_4k on the single pod
+# (xLSTM-1.3B and RecurrentGemma-2B, through ``--mesh both``), Qwen3-8B's
+# prefill_32k and train_4k on the single pod, and :data:`SP_CELLS`
 def dryrun_runs() -> tuple:
     from repro_torch import configs
 
@@ -2652,12 +2665,14 @@ def dryrun_runs() -> tuple:
     # layers and Llama-4's 48 trace longest), beside the others'
     dense = tuple(a for a in configs.ARCH_IDS if a not in MOE_ARCHS)
     moe = tuple(a for a in configs.ARCH_IDS if a in MOE_ARCHS)
-    return ((moe, "decode_32k", "single"), (moe, "decode_32k", "multi"),
-            (dense, "decode_32k", "single"),
-            (dense, "decode_32k", "multi"),
-            (configs.LONG_CONTEXT_ARCHS, "long_500k", "both"),
-            (("qwen3_8b",), "prefill_32k", "single"),
-            (("qwen3_8b",), "train_4k", "single"))
+    return ((moe, "decode_32k", "single", False),
+            (moe, "decode_32k", "multi", False),
+            (dense, "decode_32k", "single", False),
+            (dense, "decode_32k", "multi", False),
+            (configs.LONG_CONTEXT_ARCHS, "long_500k", "both", False),
+            (("qwen3_8b",), "prefill_32k", "single", False),
+            (("qwen3_8b",), "train_4k", "single", False)) + tuple(
+        ((arch,), shape, "single", True) for arch, shape in SP_CELLS)
 
 
 def run_dryrun() -> dict:
@@ -2666,8 +2681,10 @@ def run_dryrun() -> dict:
     under ``build/dryrun``.  Every cell must be ``ok``; a decode cell's
     cache bytes per device (its ``alias_bytes``: the cache the step updates
     in place) must equal ``dryrun.cache_bytes_per_device``; each cell's
-    trace seconds and ``memory.total_bytes`` are printed.  Returns
-    ``{"arch shape mesh": (trace_s, total_bytes, alias_bytes)}``."""
+    trace seconds and ``memory.total_bytes`` are printed, and an ``--sp``
+    cell's collectives by kind beside those of its cell without ``--sp``
+    where there is one.  Returns ``{"arch shape mesh[ sp]": (trace_s,
+    total_bytes, alias_bytes, {kind: [calls, payload bytes]})}``."""
     import os
 
     from repro_torch import configs
@@ -2679,9 +2696,10 @@ def run_dryrun() -> dict:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
     t0 = time.perf_counter()
-    for archs, shape, mesh in dryrun_runs():
+    for archs, shape, mesh, sp in dryrun_runs():
         args = ["dryrun", "--arch", ",".join(archs), "--shape", shape,
-                "--mesh", mesh, "--out", str(out)]
+                "--mesh", mesh, "--out", str(out)] + (
+                    ["--sp", "--tag", "sp"] if sp else [])
         procs.append((args, subprocess.Popen(
             [sys.executable, "-m", "repro_torch", *args], cwd=ROOT, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
@@ -2697,13 +2715,15 @@ def run_dryrun() -> dict:
             fail(f"`python -m repro_torch {' '.join(args)}` exited "
                  f"{proc.returncode}")
     cells = {}
-    for arch, shape, mesh in (
-            (a, shape, m) for archs, shape, mesh in dryrun_runs()
+    for arch, shape, mesh, sp in (
+            (a, shape, m, sp) for archs, shape, mesh, sp in dryrun_runs()
             for a in archs
             for m in (("single", "multi") if mesh == "both" else (mesh,))):
-        r = json.loads((out / f"{arch}_{shape}_{mesh}.json").read_text())
+        key = f"{arch} {shape} {mesh}" + (" sp" if sp else "")
+        r = json.loads((out / (f"{arch}_{shape}_{mesh}" + (
+            "_sp" if sp else "") + ".json")).read_text())
         mem = r["memory"]
-        log(f"[dryrun] {arch} {shape} {mesh} ({r['devices']} ranks): ok "
+        log(f"[dryrun] {key} ({r['devices']} ranks): ok "
             f"{r['ok']}, trace {r['trace_s']:.2f} s, total "
             f"{mem['total_bytes'] / 1e9:.3f} GB a device (arguments "
             f"{mem['argument_bytes'] / 1e9:.3f}, temp "
@@ -2711,7 +2731,7 @@ def run_dryrun() -> dict:
             f"{mem['alias_bytes'] / 1e9:.4f})"
             f", dominant {r['roofline']['dominant']}")
         if not r["ok"]:
-            fail(f"dry run {arch} {shape} {mesh} not ok")
+            fail(f"dry run {key} not ok")
         if SHAPES_BY_NAME[shape].kind == "decode":
             want = cache_bytes_per_device(
                 configs.config(arch), SHAPES_BY_NAME[shape],
@@ -2719,8 +2739,22 @@ def run_dryrun() -> dict:
             if mem["alias_bytes"] != want:
                 fail(f"dry run {arch} {shape} {mesh}: cache "
                      f"{mem['alias_bytes']} B a device != {want}")
-        cells[f"{arch} {shape} {mesh}"] = (r["trace_s"], mem["total_bytes"],
-                                           mem["alias_bytes"])
+        cells[key] = (r["trace_s"], mem["total_bytes"], mem["alias_bytes"],
+                      {k: [v["calls"], v["payload_bytes"]]
+                       for k, v in sorted(r["collectives"].items())})
+    for key, (trace_s, total, _, kinds) in cells.items():
+        if not key.endswith(" sp"):
+            continue
+        base = cells.get(key[:-3])
+        log(f"[dryrun] {key}: trace {trace_s:.2f} s, total "
+            f"{total / 1e9:.3f} GB a device" + (
+                f" (without --sp: trace {base[0]:.2f} s, total "
+                f"{base[1] / 1e9:.3f} GB)" if base else ""))
+        for kind in sorted(set(kinds) | set(base[3] if base else ())):
+            calls, nbytes = kinds.get(kind, (0, 0))
+            log(f"[dryrun]   {kind}: {calls} calls, {nbytes} B" + (
+                " (without --sp: {} calls, {} B)".format(
+                    *base[3].get(kind, (0, 0))) if base else ""))
     return cells
 
 
@@ -3006,8 +3040,10 @@ def main() -> None:
             "bwd_step_ms", "bwd_ms", "bwd_share", "tflop", "bound_ms")}
             for a, r in lm.items()},
         "dryrun": {k: {"trace_s": round(t, 3), "total_bytes": tot,
-                       "alias_bytes": alias}
-                   for k, (t, tot, alias) in dry.items()},
+                       "alias_bytes": alias,
+                       **({"collectives": kinds} if k.endswith(" sp")
+                          else {})}
+                   for k, (t, tot, alias, kinds) in dry.items()},
         "phase_seconds": {k: round(v, 3) for k, v in seconds.items()}}
     log(json.dumps(line))
     log(gpu_name_and_limit())

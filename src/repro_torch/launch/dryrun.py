@@ -16,6 +16,8 @@ Usage (the CLI forwards ``python -m repro_torch dryrun ...`` here)::
     python -m repro_torch dryrun --arch qwen3_8b --shape decode_32k --mesh both
     python -m repro_torch dryrun --all --mesh both --skip-existing
     python -m repro_torch dryrun --arch qwen3_8b --shape train_4k --device cpu
+    python -m repro_torch dryrun --arch qwen3_8b --shape prefill_32k \
+        --sp --tag sp
     python -m repro_torch dryrun --arch qwen3_8b,granite_20b \
         --shape prefill_32k,decode_32k
 
@@ -43,11 +45,15 @@ Where the port differs from the reference:
   and multi-pod cells run in separate processes: ``--mesh both`` runs
   ``--mesh single`` and ``--mesh multi`` as children, and opens no
   process group itself.
-* ``--sp`` is refused: the port's models keep the activations' ``seq``
-  unsharded (the rotary positions, the q/k/v layouts), so a train or
-  prefill step cannot take the Sharder's ``enable_sp`` rule (the
-  reference's), and a decode step's one-token sequence would capture
-  exactly as without it.
+* ``--sp`` captures under the Sharder's ``enable_sp`` rule (``seq`` over
+  ``model``), as the reference's lowers: a train or prefill step's
+  activations split along the sequence.  Where DTensor cannot take a
+  product of such an activation with a weight split over ``model``, the
+  port gathers the weight whole (GSPMD may move the activation instead),
+  and the attention gathers k and v along the sequence; the recurrences
+  (RG-LRU, mLSTM, sLSTM) and the MoE dispatch take the whole sequence.  A
+  decode step's one-token sequence does not split: it captures exactly as
+  without ``--sp``.
 * ``--arch`` and ``--shape`` also take comma lists (every arch with every
   shape), so one process captures several cells of a mesh.
 * Output goes to ``artifacts/dryrun_torch/``; the reference's
@@ -187,16 +193,17 @@ class LiveBytes(TorchDispatchMode):
 
 
 def capture_cell(arch: str, shape_name: str, mesh, *, opt_name=None,
-                 train_overrides=None) -> dict:
+                 sp: bool = False, train_overrides=None) -> dict:
     """Capture one cell's step on ``mesh`` (the reference's
-    ``lower_cell``).  Returns ``{"cfg", "shape", "model_flops", "ops",
-    "events", "cost", "memory", "trace_s"}``."""
+    ``lower_cell``), with ``sp`` under the ``seq -> model`` rule.  Returns
+    ``{"cfg", "shape", "model_flops", "ops", "events", "cost", "memory",
+    "trace_s"}``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     cfg = configs.config(arch)
     shape = SHAPES_BY_NAME[shape_name]
     model = build_model(cfg)
-    shd = Sharder(mesh)
+    shd = Sharder(mesh, enable_sp=sp)
     dev = mesh.device_type
     b, s = shape.global_batch, shape.seq_len
     fake = FakeTensorMode(allow_non_fake_inputs=True)
@@ -280,7 +287,7 @@ def cache_bytes_per_device(cfg, shape, mesh_shape, axis_names) -> int:
 
 def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              save_hlo: bool = False, out_dir: str = ARTIFACT_DIR,
-             tag: str = "", train_overrides=None,
+             sp: bool = False, tag: str = "", train_overrides=None,
              device: str = "cuda") -> dict:
     """Capture one cell on the production mesh and write its JSON, with the
     reference's keys."""
@@ -288,7 +295,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
 
     mesh = make_production_mesh(multi_pod=multi_pod, device=device)
     mname = "multi" if multi_pod else "single"
-    cell = capture_cell(arch, shape_name, mesh,
+    cell = capture_cell(arch, shape_name, mesh, sp=sp,
                         train_overrides=train_overrides)
     topo = MeshTopology.from_mesh(mesh)
     rl = roofline.analyze(
@@ -327,7 +334,8 @@ def _children(args) -> int:
     fwd += ["--shape", args.shape] if args.shape else []
     fwd += [f for f, on in (("--all", args.all),
                             ("--skip-existing", args.skip_existing),
-                            ("--save-hlo", args.save_hlo)) if on]
+                            ("--save-hlo", args.save_hlo),
+                            ("--sp", args.sp)) if on]
     fwd += ["--tag", args.tag, "--out", args.out, "--device", args.device]
     failed = []
     for mname in ("single", "multi"):
@@ -352,8 +360,7 @@ def main(argv=None) -> int:
                     help="no HLO exists: write the capture's recorded ops "
                          "and traced events (<stem>.ops.json.gz) instead")
     ap.add_argument("--sp", action="store_true",
-                    help="sequence parallelism: refused, the models keep "
-                         "seq unsharded")
+                    help="sequence parallelism (seq over model)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--out", default=ARTIFACT_DIR)
     ap.add_argument("--device", default="cuda",
@@ -361,9 +368,6 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not args.all and not (args.arch and args.shape):
         ap.error("give --arch and --shape, or --all")
-    if args.sp:
-        ap.error("--sp: sequence parallelism is not ported; the models "
-                 "keep the activations' seq unsharded")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise ValueError("no CUDA device for a cuda capture mesh; pass "
                          "--device cpu to capture on a CPU mesh")
@@ -384,7 +388,7 @@ def main(argv=None) -> int:
         print(f"[dryrun] {arch} x {shape} @ {args.mesh} ...", flush=True)
         try:
             r = run_cell(arch, shape, mp, save_hlo=args.save_hlo,
-                         out_dir=args.out, tag=args.tag,
+                         out_dir=args.out, sp=args.sp, tag=args.tag,
                          device=args.device)
             mem = r["memory"]["total_bytes"] / 2**30
             rl = r["roofline"]

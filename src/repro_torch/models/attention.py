@@ -29,6 +29,11 @@ Where the port differs from the reference:
   position as ``q_offset`` (:func:`context_parallel_offset`), which the
   reference's global-view program does not need.  Elsewhere heads are
   padded to a multiple of ``tp``, as in the reference.
+* Under the ``seq -> model`` rule (sequence parallelism) prefill and
+  training keep q on its sequence shard, rotated at its global positions
+  and handed to the kernel at its global ``q_offset``
+  (:meth:`~repro_torch.parallel.Sharder.seq_offset`); k and v are gathered
+  along the sequence, unexpanded, and fill the cache from there.
 """
 from __future__ import annotations
 
@@ -102,9 +107,7 @@ def context_parallel_offset(shd, s: int) -> int:
     :data:`CP_AXES`: its ``model`` coordinate times ``s // tp`` when the
     sequence is sharded there, else 0 (the Sharder's fallback leaves a
     sequence that ``tp`` does not divide whole)."""
-    if shd.spec((1, s, 1, 1), CP_AXES)[1] is None:
-        return 0
-    return shd.mesh.get_local_rank("model") * (s // shd.tp)
+    return shd.seq_offset(s, "attn_seq")
 
 
 def pad_heads(x, nh_pad: int):
@@ -242,7 +245,7 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
     tp = shd.logical_size("heads")
 
     def heads(w, n):
-        t = x @ params[w].to(dt)
+        t = shd.matmul(x, params[w].to(dt))
         if n % tp:
             # a model shard that splits a head is gathered first: DTensor
             # cannot unflatten it, or (one head, MQA) unflattens it along
@@ -258,11 +261,21 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
 
     if cache is None or s > 1:
         positions = torch.arange(s, device=x.device)[None]
+        sp = shd.seq_sharded(q)
+        if sp:                           # each shard at its global rows
+            positions = shd.shard(positions, (None, "seq"))
         q = _rope(shd, q, positions, cfg.rope_theta)
         k = _rope(shd, k, positions, cfg.rope_theta)
         k_gqa, v_gqa = k, v              # unexpanded GQA form for the cache
         q_off = 0
-        if use_context_parallel(b, s, nh, tp, shd.dp):
+        if sp:
+            # sequence parallel: q stays on its shard, at its global
+            # offset; k and v are gathered along the sequence, unexpanded
+            k, v = (shd.constraint(t, ("batch", None, None, None))
+                    for t in (k, v))
+            k_gqa, v_gqa = k, v
+            q_ax, q_off = None, shd.seq_offset(s)
+        elif use_context_parallel(b, s, nh, tp, shd.dp):
             q = shd.constraint(q, CP_AXES)
             # one kv head expands as a view (stride 0 over the heads),
             # which stays a view when replicated; the kernel reads rows
@@ -334,7 +347,7 @@ def attention_block(params, x, cfg: ModelConfig, shd, *,
         # shards for the matmul nor, backwards, a gradient shard that
         # splits a head)
         out = shd.constraint(out, ("batch", "seq", None))
-    out = out.to(dt) @ params["wo"].to(dt)
+    out = shd.matmul(out.to(dt), params["wo"].to(dt))
     return shd.constraint(out, ("batch", "seq", None)), new_cache
 
 

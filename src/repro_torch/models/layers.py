@@ -54,8 +54,13 @@ def norm_spec(cfg: ModelConfig, stacked: int = 0,
 # applies
 # ---------------------------------------------------------------------------
 def embed(params, tokens, cfg: ModelConfig, shd):
-    """Token embedding lookup with a vocab-sharded table."""
+    """Token embedding lookup with a vocab-sharded table.  Ids split
+    along the sequence (the ``seq -> model`` rule) are gathered over it
+    first, as the table's vocab shards need every id; the lookup's
+    partial sum over them is then scattered back along the sequence."""
     w = params["tok"].to(getattr(torch, cfg.compute_dtype))
+    if shd.seq_sharded(tokens):
+        tokens = shd.constraint(tokens, ("batch", None))
     if shd.mesh is not None and hasattr(tokens, "placements"):
         tokens = _gather_ids(shd, tokens, w)
     out = F.embedding(tokens, w)
@@ -96,11 +101,11 @@ def _gather_ids(shd, tokens, w):
 def mlp(params, x, cfg: ModelConfig, shd):
     """SwiGLU MLP; hidden dim sharded over the model axis (TP)."""
     dt = x.dtype
-    h = x @ params["wi"].to(dt)
+    h = shd.matmul(x, params["wi"].to(dt))
     h = shd.constraint(h, ("batch", "seq", "mlp"))
     gate, up = torch.chunk(h, 2, dim=-1)
     h = F.silu(gate) * up
-    out = h @ params["wo"].to(dt)
+    out = shd.matmul(h, params["wo"].to(dt))
     return shd.constraint(out, ("batch", "seq", None))
 
 
@@ -111,7 +116,7 @@ def lm_logits(params_head, params_embed, h, cfg: ModelConfig, shd):
         w = params_embed["tok"].to(dt).T
     else:
         w = params_head["w"].to(dt)
-    return shd.constraint(h @ w, ("batch", "seq", "vocab"))
+    return shd.constraint(shd.matmul(h, w), ("batch", "seq", "vocab"))
 
 
 def chunked_lm_loss(params_head, params_embed, h, labels, cfg: ModelConfig,
@@ -134,18 +139,16 @@ def chunked_lm_loss(params_head, params_embed, h, labels, cfg: ModelConfig,
     else:
         w = params_head["w"]
     w = w.to(h.dtype)
+    if shd.seq_sharded(h):
+        return _seq_split_lm_loss(h, labels, w, shd, chunk)
 
     def body(hx, lx, w):
         logits = shd.constraint(hx @ w, ("batch", "seq", "vocab")).float()
-        valid = lx >= 0
-        lab = torch.clamp_min(lx, 0).long()
-        logz = torch.logsumexp(logits, dim=-1)
         # laid out before the last dim goes: on a vocab-sharded mesh the
         # gather is a masked partial sum, reduced here (the reference's
         # psum over the vocab shards)
-        gold = shd.constraint(torch.gather(logits, -1, lab[..., None]),
-                              ("batch", "seq", None))[..., 0]
-        return ((logz - gold) * valid).sum(), valid.sum()
+        return _nll_sum(logits, lx, lambda g: shd.constraint(
+            g, ("batch", "seq", None)))
 
     nll = cnt = 0
     for c in range(0, s, chunk):
@@ -153,6 +156,55 @@ def chunked_lm_loss(params_head, params_embed, h, labels, cfg: ModelConfig,
                           use_reentrant=False)
         nll, cnt = nll + n, cnt + v
     return nll / torch.clamp_min(cnt, 1)
+
+
+def _nll_sum(logits, labels, gold_layout=None):
+    """(summed fp32 cross-entropy, count) of ``logits`` against
+    ``labels``, labels below 0 ignored; ``gold_layout`` lays out the
+    gathered gold logits before their last dim goes."""
+    valid = labels >= 0
+    lab = torch.clamp_min(labels, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])
+    if gold_layout is not None:
+        gold = gold_layout(gold)
+    return ((logz - gold[..., 0]) * valid).sum(), valid.sum()
+
+
+def _seq_split_lm_loss(h, labels, w, shd, chunk: int):
+    """:func:`chunked_lm_loss` of a sequence split over ``model`` (the
+    ``seq -> model`` rule): the head is gathered whole, as the logits'
+    vocab has lost ``model`` to the sequence, and each rank runs its own
+    rows one ``chunk / n`` at a time (``n`` the sequence shards: the same
+    count of chunks as one process, each as many logits a rank as
+    ``chunk`` rows over vocab shards).  Each rank's sums leave its step
+    on a leading dim of their own and are summed there by DTensor (whose
+    backward hands each rank the whole gradient)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    n = h.shape[1] // h.to_local().shape[1]
+    out_pl = [Shard(0) if isinstance(p, Shard) else Replicate()
+              for p in h.placements]
+
+    def body(hx, lx, w):
+        return _nll_sum((hx @ w).float(), lx)
+
+    def local(hx, lx, w):
+        s_loc = hx.shape[1]
+        step = max(1, chunk // n)
+        if s_loc % step:
+            step = s_loc
+        nll = cnt = 0
+        for c in range(0, s_loc, step):
+            a, v = checkpoint(body, hx[:, c:c + step], lx[:, c:c + step], w,
+                              use_reentrant=False)
+            nll, cnt = nll + a, cnt + v
+        return nll.reshape(1), cnt.reshape(1)
+
+    nll, cnt = shd.local(local, (h, labels, w),
+                         (None, ("batch", "seq"), (None, None)),
+                         out_placements=(out_pl, out_pl))
+    return nll.sum() / torch.clamp_min(cnt.sum(), 1)
 
 
 # ---------------------------------------------------------------------------

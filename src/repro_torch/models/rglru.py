@@ -28,6 +28,10 @@ Where the port differs from the reference:
 * ``decode_step`` writes the new recurrent states and k/v into the caller's
   cache tensors in place and advances ``len`` in place (the reference
   returns a new cache); the returned cache is the same dict.
+* Under the ``seq -> model`` rule (sequence parallelism) the temporal
+  conv and the scan run on the whole sequence split by channels
+  (:data:`REC_AXES`): a shard would need its predecessor's last inputs
+  and final ``h``.  The block's products run on the sequence shards.
 * ``loss_fn`` keeps the reference's checkpointing, whatever ``remat``
   says: every superblock under the ``dots`` policy
   (:func:`~repro_torch.models.transformer.with_remat`), the tail layers
@@ -50,7 +54,10 @@ from .transformer import with_remat
 RGLRU_C = 8.0
 CACHE_DTYPE = torch.bfloat16      # the reference's prefill hard-codes bf16
 STATE_DTYPE = torch.float32       # recurrent h and conv buffer, as init_rec_state
-REC_AXES = ("batch", "seq", "rnn")
+# the recurrence's layout: the sequence whole, the channels over ``model``
+# (under the ``seq -> model`` rule, too: the conv and the scan need the
+# whole sequence, so a sequence split enters them by an all-to-all)
+REC_AXES = ("batch", None, "rnn")
 
 
 # ---------------------------------------------------------------------------
@@ -129,7 +136,9 @@ def temporal_conv(p, x, cfg: ModelConfig, shd,
     """Causal depthwise conv of width ``cw`` over x (B,S,Dr), on local
     shards.  ``prev``: the (B, cw-1, Dr) decode buffer (zeros when None).
     ``channel`` is the logical axis of the channels (RG-LRU's ``rnn``,
-    xLSTM's mLSTM ``inner``): x is laid out ``("batch", "seq", channel)``,
+    xLSTM's mLSTM ``inner``): x is laid out ``("batch", None, channel)``
+    (the sequence whole, where a shard would need its predecessor's last
+    ``cw - 1`` inputs),
     ``conv_w`` ``("conv", channel)``, ``conv_b`` ``(channel,)`` and the
     buffer ``("batch", None, channel)``.  Returns ``(out (B,S,Dr), new
     buffer (B,cw-1,Dr))``."""
@@ -145,7 +154,7 @@ def temporal_conv(p, x, cfg: ModelConfig, shd,
         return out + b.to(x.dtype), xp[:, s:]
 
     return shd.local(conv, (x, p["conv_w"], p["conv_b"], prev),
-                     (("batch", "seq", channel), ("conv", channel),
+                     (("batch", None, channel), ("conv", channel),
                       (channel,), ("batch", None, channel)), out=(0, 0))
 
 
@@ -155,12 +164,15 @@ def recurrent_block(p, x, cfg: ModelConfig, shd,
     ``new_state = {"h": (B,Dr), "conv": (B,cw-1,Dr)}`` in fp32; ``state``
     None is the zero state."""
     dt = x.dtype
-    gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
-    rec = shd.constraint(x @ p["w_rec_in"].to(dt), REC_AXES)
+    gate = F.gelu(shd.matmul(x, p["w_gate"].to(dt)), approximate="tanh")
+    rec = shd.constraint(shd.matmul(x, p["w_rec_in"].to(dt)), REC_AXES)
     rec, conv_buf = temporal_conv(p, rec, cfg, shd,
                                   None if state is None else state["conv"])
     h, h_last = rglru_apply(p, rec, cfg, shd, state)
-    out = (gate.float() * h).to(dt) @ p["w_out"].to(dt)
+    if shd.seq_sharded(gate):
+        # back to the sequence split of the gate branch
+        h = shd.constraint(h, ("batch", "seq", None))
+    out = shd.matmul((gate.float() * h).to(dt), p["w_out"].to(dt))
     return out, {"h": h_last, "conv": conv_buf.to(STATE_DTYPE)}
 
 
@@ -402,6 +414,5 @@ class GriffinLM:
                  "tail": _stack(tail),
                  "len": torch.full((), s, dtype=torch.int32,
                                    device=batch["tokens"].device)}
-        # the kernels take contiguous rows
-        logits = self._logits(params, x[:, -1:].contiguous(), shd)
+        logits = self._logits(params, shd.last_position(x), shd)
         return logits[:, 0], cache

@@ -230,6 +230,5 @@ class TransformerLM:
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),
                  "len": torch.full((), s, dtype=torch.int32,
                                    device=x.device)}
-        # the kernels take contiguous rows
-        logits = self._logits(params, x[:, -1:].contiguous(), shd)
+        logits = self._logits(params, shd.last_position(x), shd)
         return logits[:, 0], cache

@@ -41,6 +41,10 @@ Where the port differs from the reference:
   on whole heads, its ``r_g`` gathered to them, or replicated over
   ``model`` where ``model`` does not divide the heads (16 on the
   production mesh), as the MoE block's TP-experts fallback.
+* Under the ``seq -> model`` rule (sequence parallelism) both
+  recurrences, and the mLSTM conv, run on the whole sequence in the
+  layouts above; the norms and the products around them run on the
+  sequence shards.
 """
 from __future__ import annotations
 
@@ -61,7 +65,10 @@ from .transformer import with_remat
 NEG_INF = -1e30
 STATE_DTYPE = torch.float32      # every recurrent state, as the reference
 ACT = ("batch", "seq", None)
-INNER = ("batch", "seq", "inner")
+# the recurrences' layouts keep the sequence whole (both are recurrences
+# over all of it): under the ``seq -> model`` rule a sequence split enters
+# them by an all-to-all and leaves them by another
+INNER = ("batch", None, "inner")
 GATES = ("z", "i", "f", "o")
 
 
@@ -122,7 +129,7 @@ def _mlstm_gates(p, xc, shd=None):
     log-sigmoid runs on local shards (DTensor has no rule for its
     backward)."""
     xf = xc.float()
-    ax = ("batch", "seq", "heads")
+    ax = ("batch", None, "heads")
     mesh = shd is not None and shd.mesh is not None
 
     def gate(w, b):
@@ -200,7 +207,7 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, shd,
     mesh = shd.mesh is not None
 
     h = rms_norm(x, p["norm"], cfg.norm_eps, shd, ACT)
-    up = shd.constraint(h @ p["w_up"].to(dt), INNER)
+    up = shd.constraint(shd.matmul(h, p["w_up"].to(dt)), INNER)
     xm, z = torch.chunk(up, 2, dim=-1)
     conv_buf = None if state is None else state.get("conv")
     xc, new_conv = temporal_conv(p, xm, cfg, shd, conv_buf, channel="inner")
@@ -211,8 +218,8 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, shd,
     v = (xm @ p["wv"].to(dt)).reshape(b, s, nh, dh)
     log_f, itilde = _mlstm_gates(p, xc, shd)
 
-    heads4, heads3 = ("batch", "seq", "heads", None), ("batch", "seq",
-                                                       "heads")
+    heads4, heads3 = ("batch", None, "heads", None), ("batch", None,
+                                                     "heads")
     ax = mlstm_state_axes()
     new_state = None
     if state is None or s > 1:
@@ -233,7 +240,7 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, shd,
         new_state = {"C": C, "n": n, "m": m,
                      "conv": new_conv.to(STATE_DTYPE)}
     elif state is not None:
-        whole = ("batch", "seq", None, None)
+        whole = ("batch", None, None, None)
         out_pl = None
         if mesh:
             out_pl = (list(shd.placements((b, nh, dh, dh), ax["C"])),
@@ -242,15 +249,17 @@ def mlstm_block_apply(p, x, cfg: ModelConfig, shd,
                       list(shd.placements((b, nh), ax["m"])))
         C, n, m = shd.local(
             _final_state_tuple, (k, v, log_f, itilde),
-            (whole, ("batch", "seq", None, "inner"), ("batch", "seq", None),
-             ("batch", "seq", None)), out_placements=out_pl)
+            (whole, ("batch", None, None, "inner"), ("batch", None, None),
+             ("batch", None, None)), out_placements=out_pl)
         new_state = {"C": C, "n": shd.constraint(n, ax["n"]), "m": m,
                      "conv": new_conv.to(STATE_DTYPE)}
 
     ht = ht.reshape(b, s, di)
     ht = rms_norm(ht.to(dt), p["head_norm"], cfg.norm_eps, shd, ACT)
+    if shd.seq_sharded(ht):
+        z = shd.constraint(z, ACT)
     out = ht * F.silu(z)
-    out = out @ p["w_down"].to(dt)
+    out = shd.matmul(out, p["w_down"].to(dt))
     return x + shd.constraint(out, ACT), new_state
 
 
@@ -297,10 +306,10 @@ def slstm_apply(p, x, cfg: ModelConfig, shd, state: Optional[dict] = None,
     h_in = rms_norm(x, p["norm"], cfg.norm_eps, shd, ACT)
     xf = h_in.float()
     hax = _head_axis(cfg, shd)
-    gax = ("batch", "seq", hax)
+    gax = ("batch", None, hax)
 
     def gate(g):
-        return shd.constraint(xf @ p[f"w_{g}"].float(), gax) \
+        return shd.constraint(shd.matmul(xf, p[f"w_{g}"].float()), gax) \
             + p[f"b_{g}"].float()
 
     xg = torch.stack([gate(g) for g in GATES], dim=2)      # (B,S,4,d)
@@ -313,13 +322,13 @@ def slstm_apply(p, x, cfg: ModelConfig, shd, state: Optional[dict] = None,
                   list(shd.placements((4, b, d), (None, "batch", hax))))
     hs, carry = shd.local(
         functools.partial(slstm_scan, chunk=chunk), (xg, r, st),
-        (("batch", "seq", None, hax),
+        (("batch", None, None, hax),
          (None, "heads" if hax else None, None, None),
          (None, "batch", hax)), out_placements=out_pl)
     new_state = dict(zip(("c", "n", "m", "h"), carry.unbind(0)))
     dt = x.dtype
     hs = rms_norm(hs.to(dt), p["head_norm"], cfg.norm_eps, shd, ACT)
-    out = hs @ p["w_out"].to(dt)
+    out = shd.matmul(hs, p["w_out"].to(dt))
     return x + shd.constraint(out, ACT), new_state
 
 
@@ -485,6 +494,5 @@ class XLSTMLM:
         cache = {"mlstm": _stack(ms), "slstm": _stack(ss),
                  "len": torch.full((), s, dtype=torch.int32,
                                    device=batch["tokens"].device)}
-        # the kernels take contiguous rows
-        logits = self._logits(params, x[:, -1:].contiguous(), shd)
+        logits = self._logits(params, shd.last_position(x), shd)
         return logits[:, 0], cache

@@ -10,11 +10,16 @@ within one tensor.  The result maps to DTensor placements: ``Shard(d)`` on
 each mesh dim that a tensor dim claims, ``Replicate()`` elsewhere.
 
 ``enable_sp`` maps ``seq`` to ``model`` (sequence parallelism), as the
-reference's does.  With no mesh (serving on one card) every method is the
-identity and the model runs on plain tensors.  With a mesh, tensors are DTensors,
-``constraint`` is ``redistribute``, and :meth:`Sharder.local` runs a
-function -- a kernel wrapper, which has no DTensor sharding rule -- on the
-local shards.
+reference's does; a sequence that ``model`` does not divide (a decode
+step's one token) stays whole.  What the rules table cannot say about a
+split sequence lives here too: the global offset of a rank's shard
+(:meth:`Sharder.seq_offset`), the product of a sequence-split activation
+with a weight (:meth:`Sharder.matmul`) and its last position
+(:meth:`Sharder.last_position`).  With no mesh (serving on one card)
+every method is the identity and the model runs on plain tensors.  With
+a mesh, tensors are DTensors, ``constraint`` is ``redistribute``, and
+:meth:`Sharder.local` runs a function -- a kernel wrapper, which has no
+DTensor sharding rule -- on the local shards.
 """
 from __future__ import annotations
 
@@ -87,6 +92,58 @@ class Sharder:
         other coordinate with this one (what a collective over that axis
         runs on)."""
         return self.mesh.get_group(mesh_axis)
+
+    # ------------------------------------------------------------------
+    # sequence parallelism
+    # ------------------------------------------------------------------
+    def seq_offset(self, s: int, logical: str = "seq") -> int:
+        """Global position of this rank's first row of a sequence of ``s``
+        laid out by ``logical``: its coordinate over the mapped mesh axes
+        (row-major) times the shard's length; 0 where the sequence is
+        whole."""
+        entry = self.spec((s,), (logical,))[0] if self.mesh is not None \
+            else None
+        if entry is None:
+            return 0
+        idx, n = 0, 1
+        for a in ((entry,) if isinstance(entry, str) else entry):
+            idx = idx * self.mesh_sizes[a] + self.coordinate(a)
+            n *= self.mesh_sizes[a]
+        return idx * (s // n)
+
+    def seq_sharded(self, x) -> bool:
+        """Whether activation ``x`` (B, S, ...) is a DTensor split along
+        its sequence (dim 1)."""
+        if self.mesh is None:
+            return False
+        from torch.distributed.tensor import DTensor, Shard
+
+        return isinstance(x, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 1 for p in x.placements)
+
+    def matmul(self, x, w):
+        """``x @ w`` for an activation ``x`` and a weight ``w`` (in, out).
+
+        Where ``x`` is split along its sequence (the ``seq -> model``
+        rule), the weight's output dim has lost ``model`` to the sequence
+        (no axis reuse), and DTensor has no strategy for a product of the
+        flattened batch-and-sequence shards with a split weight: ``w`` is
+        gathered whole and the product taken on the local rows.  Its
+        gradient is each rank's share (``Partial`` where the rows are
+        split), reduced back to the weight's shards.  Elsewhere this is
+        ``x @ w``."""
+        if not self.seq_sharded(x):
+            return x @ w
+        return self.local(torch.matmul, (x, w), (None, (None,) * w.dim()))
+
+    def last_position(self, x):
+        """``x[:, -1:]``, contiguous (the kernels take contiguous rows).
+        Where ``x`` is split along its sequence, each rank's last row is
+        taken on its shard first, so only those rows are gathered, not
+        the sequence."""
+        if self.seq_sharded(x):
+            x = self.local(lambda t: t[:, -1:], (x,), (None,))
+        return x[:, -1:].contiguous()
 
     # ------------------------------------------------------------------
     def spec(self, shape: Sequence[int],

@@ -387,18 +387,160 @@ def test_reduced_cells_pinned_beside_reference(sname, monkeypatch):
             assert PORT_DRY[sname][kind][0] == 2 * got[kind][0]
 
 
-def test_sequence_parallel_option(tmp_path, capsys):
-    """``--sp`` (``seq`` over model) is refused as the arguments are read:
-    the port's models keep ``seq`` unsharded, so no cell is captured and
-    nothing is written."""
-    with pytest.raises(SystemExit) as exc:
-        dryrun.main(["--arch", "qwen3_8b", "--shape", "decode_32k", "--sp",
-                     "--device", "cpu", "--out", str(tmp_path)])
-    assert exc.value.code == 2
-    assert "--sp: sequence parallelism is not ported" in \
-        capsys.readouterr().err
-    assert not list(tmp_path.iterdir())
-    assert "sp" not in inspect.signature(dryrun.capture_cell).parameters
+# the same cells under ``--sp`` (``Sharder(mesh, enable_sp=True)``: seq over
+# model) beside the reference's ``lower_cell(..., sp=True).compile()``.
+# Prefill: the port gathers each weight whole for its products on the
+# sequence shards (an all-gather over data, the FSDP one, and one over
+# model a weight: the 12 + 12 + 4 + 4 small gathers), gathers k and v
+# along the sequence a layer (4 + 4 of bf16[8,16384,4,16] a rank) and
+# reshards each filled cache from kv heads to sequence shards (4 + 4, a
+# CPU mesh's all-gather and chunk), gathers the ids over the sequence for
+# the vocab-split table and scatters the lookup's partial sum back along
+# it (the 32 MB reduce-scatter), where GSPMD keeps the ids split, reduces
+# small partials and moves the last position by one 2 KB permute.  Train
+# (2 microbatches): the same gathers a microbatch, twice more in the
+# recomputed backward (``full`` remat), and each weight's gradient
+# reduce-scattered back to its shards (the 120), where GSPMD moves
+# activations by all-to-alls and permutes.  Decode: a one-token sequence
+# does not split, so both packages capture exactly their non-SP tables.
+PORT_DRY_SP = {
+    "decode_32k": PORT_DRY["decode_32k"],
+    "prefill_32k": {"all-gather": (68, 2153332736),
+                    "reduce-scatter": (2, 134250496)},
+    "train_4k": {"all-gather": (234, 2292711424),
+                 "all-reduce": (78, 33960),
+                 "reduce-scatter": (120, 1212022784)},
+}
+REF_DRY_SP = {
+    "decode_32k": REF_DRY["decode_32k"],
+    "prefill_32k": {"all-gather": (16, 270172160),
+                    "all-reduce": (5, 2625664),
+                    "collective-permute": (1, 2048)},
+    "train_4k": {"all-gather": (41, 700121088), "all-reduce": (24, 40242048),
+                 "all-to-all": (3, 272629760),
+                 "collective-permute": (10, 50593792)},
+}
+# their memory: arguments (the batch split over the sequence too) and
+# aliases agree to the byte; outputs by the reference's 32 bytes more
+PORT_MEM_SP = {
+    "decode_32k": PORT_MEM["decode_32k"],
+    "prefill_32k": (690944, 134221828, 335540220, 0),
+    "train_4k": (1548548, 499988, 13087206336, 499972),
+}
+REF_MEM_SP = {
+    "decode_32k": REF_MEM["decode_32k"],
+    "prefill_32k": (690944, 134221860, 2357543832, 0),
+    "train_4k": (1548548, 500352, 13220373456, 499972),
+}
+
+
+@pytest.mark.parametrize("sname", sorted(PORT_DRY_SP))
+def test_reduced_sp_cells_pinned_beside_reference(sname, monkeypatch):
+    """The reduced Qwen3-8B cells under ``sp=True`` on the 4x2 mesh: the
+    port's per-kind table and memory, and the reference's, pinned; a
+    decode_32k cell captures as without ``sp`` in both packages."""
+    from repro import configs as ref_configs
+    from repro.compat import make_mesh
+    from repro.core import hlo_parser
+    from repro_torch.core.summary import summarize
+
+    over = TRAIN if sname == "train_4k" else None
+    reduced = configs.config
+    monkeypatch.setattr(configs, "config",
+                        lambda a, reduced_=False: reduced(a, reduced=True))
+    cell = dryrun.capture_cell("qwen3_8b", sname, mesh_4x2(), sp=True,
+                               train_overrides=over)
+    assert _kinds(summarize(cell["ops"])) == PORT_DRY_SP[sname]
+    assert tuple(cell["memory"][k] for k in MEM_KEYS) == PORT_MEM_SP[sname]
+
+    ref_config = ref_configs.config
+    monkeypatch.setattr(ref_configs, "config",
+                        lambda a, reduced_=False: ref_config(a, reduced=True))
+    lowered, _ = ref_dryrun.lower_cell(
+        "qwen3_8b", sname, make_mesh((4, 2), ("data", "model")), sp=True,
+        train_overrides=over)
+    compiled = lowered.compile()
+    ops = hlo_parser.parse_hlo_collectives(compiled.as_text())
+    assert _kinds(hlo_parser.summarize(ops)) == REF_DRY_SP[sname]
+    ref_mem = ref_dryrun._memory_stats(compiled)
+    assert tuple(ref_mem[k] for k in MEM_KEYS) == REF_MEM_SP[sname]
+
+
+def test_sequence_parallel_option(tmp_path):
+    """``python -m repro_torch dryrun --sp --tag sp`` (the CLI, which
+    forwards to the dry run) captures under the ``seq -> model`` rule and
+    writes ``<arch>_<shape>_single_sp.json`` with the reference's keys
+    (a child on the 16x16 CPU mesh, the reduced Qwen3-8B's prefill_32k:
+    its tokens split over the sequence too, so a device holds 2048 of a
+    sequence's 32768 ids, where without ``--sp`` it holds them all)."""
+    child = _child("""
+        from repro_torch import cli
+        sys.exit(cli.main(['dryrun', '--arch', 'qwen3_8b', '--shape',
+                           'prefill_32k', '--sp', '--tag', 'sp', '--device',
+                           'cpu', '--out', sys.argv[1]]))
+        """)
+    proc = subprocess.run([sys.executable, "-c", child, str(tmp_path)],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=240)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    assert [p.name for p in tmp_path.iterdir()] == [
+        "qwen3_8b_prefill_32k_single_sp.json"]
+    r = json.loads((tmp_path / "qwen3_8b_prefill_32k_single_sp.json")
+                   .read_text())
+    assert list(r) == _ref_result_keys()
+    assert r["ok"] and r["tag"] == "sp" and r["devices"] == 256
+    assert "sp" in inspect.signature(dryrun.capture_cell).parameters
+    from repro_torch.models import build_model
+    from repro_torch.models.common import tree_leaves
+    from repro_torch.parallel import Sharder
+
+    shd = Sharder(types.SimpleNamespace(mesh_dim_names=("data", "model"),
+                                        shape=(16, 16)))
+    model = build_model(configs.config("qwen3_8b", reduced=True))
+    params = sum(dryrun._local_bytes(t, shd, ax) for t, ax in zip(
+        tree_leaves(model.shapes(device="meta")), tree_leaves(model.axes())))
+    # int32 ids: 2 of the 32 sequences, 2048 of their 32768 positions
+    assert r["memory"]["argument_bytes"] == params + 2 * 2048 * 4
+
+
+def test_sp_reaches_both_meshes_children(monkeypatch):
+    """``--mesh both --sp`` hands ``--sp`` (and the tag) to each mesh's
+    child."""
+    runs = []
+    monkeypatch.setattr(dryrun.subprocess, "run", lambda cmd: runs.append(
+        cmd) or types.SimpleNamespace(returncode=0))
+    assert dryrun.main(["--all", "--mesh", "both", "--sp", "--tag", "sp",
+                        "--device", "cpu"]) == 0
+    assert [cmd[-1] for cmd in runs] == ["single", "multi"]
+    for cmd in runs:
+        assert "--sp" in cmd and "--all" in cmd
+        assert cmd[cmd.index("--tag") + 1] == "sp"
+
+
+def test_all_sp_cells_in_a_child(tmp_path):
+    """``dryrun --all --sp --device cpu`` on the single pod (a 4x2 CPU
+    mesh here), the reduced configs, each train preset cut to one
+    microbatch (a microbatch repeats the first's collectives; the loop is
+    held at two by the pinned train_4k tables above): every cell of every
+    architecture is ok and writes its ``_sp`` file (~40 s)."""
+    child = _child("""
+        import dataclasses
+        _train = c.train_config
+        c.train_config = lambda arch: dataclasses.replace(_train(arch),
+                                                          microbatches=1)
+        sys.exit(dryrun.main(sys.argv[1:]))
+        """, single=(4, 2))
+    proc = subprocess.run(
+        [sys.executable, "-c", child, "--all", "--sp", "--tag", "sp",
+         "--device", "cpu", "--out", str(tmp_path)],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+    cells = configs.cells()
+    assert proc.stdout.count("  ok: mem/dev=") == len(cells)
+    for arch, sname in cells:
+        r = json.loads((tmp_path / f"{arch}_{sname}_single_sp.json")
+                       .read_text())
+        assert r["ok"] and r["tag"] == "sp", (arch, sname)
 
 
 def _chain(live, x):

@@ -80,3 +80,41 @@ def test_no_mesh_is_identity():
     assert shd.constraint(x, ("batch", None)) is x
     assert shd.local(lambda a: a + 1, (x,), (None,)).sum().item() == 12
     assert shd.logical_size("heads") == 1
+
+
+def test_sequence_split_helpers():
+    """The sequence-parallel helpers: a shard's global offset is its
+    ``model`` coordinate times the shard's length where ``seq`` is split
+    (``enable_sp`` and a length ``model`` divides), else 0 (a decode
+    step's one token, or no ``enable_sp``: ``attn_seq`` alone splits
+    then); without a mesh ``matmul`` and ``last_position`` are the plain
+    product and slice."""
+    import types
+
+    import torch
+
+    mesh = types.SimpleNamespace(
+        mesh_dim_names=("data", "model"), shape=(4, 2),
+        get_local_rank=lambda axis: {"data": 3, "model": 1}[axis])
+    sp, plain = Sharder(mesh, enable_sp=True), Sharder(mesh)
+    assert sp.seq_offset(32) == 16 and sp.seq_offset(1) == 0
+    assert sp.seq_offset(33) == 0
+    assert plain.seq_offset(32) == 0
+    assert plain.seq_offset(32, "attn_seq") == 16
+    shd = Sharder()
+    x, w = torch.randn(2, 5, 3), torch.randn(3, 4)
+    assert not shd.seq_sharded(x)
+    assert torch.equal(shd.matmul(x, w), x @ w)
+    last = shd.last_position(x)
+    assert torch.equal(last, x[:, -1:]) and last.is_contiguous()
+
+
+def test_seq_sharded_reads_the_placements():
+    """An activation laid out ``("batch", "seq", None)`` is split along
+    its sequence only under ``enable_sp``."""
+    import torch
+
+    x = torch.empty(8, 32, 16)
+    for enable, want in ((False, False), (True, True)):
+        shd = Sharder(mesh_4x2(), enable_sp=enable)
+        assert shd.seq_sharded(shd.shard(x, ("batch", "seq", None))) == want
