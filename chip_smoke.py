@@ -37,7 +37,11 @@ Phases, in order; any failure exits non-zero, and no phase catches its own:
               Chameleon-34B's 64-head qk rows; the MoE configs' attention
               (flash attention and flash decode at Grok-1's 48/8 and
               Llama-4 Maverick's 40/8 heads of 128: query groups of 6
-              and 5).
+              and 5); the reduced Qwen3-8B that the examples phase serves
+              (RMSNorm rows of 64 and qk rows of 16, flash attention at
+              4/4 heads of 16 over its 32-token prompt, flash decode over
+              its 56-slot cache at the first and the last step), before
+              the example runs them.
               RG-LRU's forward and backward kernels at its serve prefill
               and decode shapes, the lm-train microbatch (1,1024,2560), a
               ragged (1,1000,2560) and a long (1,8192,2560), each with the
@@ -124,6 +128,24 @@ lm-train   -- LM training through ``repro_torch.launch.train`` on one card:
               reduced config, 2 steps in fp32 on the card against the CPU
               from the same start, and 4 steps straight against 2, a
               checkpoint, a resume and 2 more;
+examples   -- the user examples (``examples/torch_*.py``) on the card, each
+              through its ``main(argv)`` in this process:
+              torch_image_classification at the paper's 64x64 (150 DDP
+              steps of ResNet-18 over a one-rank NCCL group, its last
+              accuracy above 0.5; at the default 30 steps a 64x64 run
+              ends above 0.5 in only some runs, the reference's own
+              example too), torch_translation (150 AdamW steps of a
+              small GNMT, its last loss under 0.7 of its first, then its
+              three-phase capture) and torch_serve_lm (the reduced Qwen3-8B
+              served, 8 x (32 + 24) tokens, then its two-phase capture; its
+              kernel launches, counted from zero just before, must equal
+              ``expected_launches`` of its warm-up and its timed
+              generate).  An example's own assertion fails the run.  Then
+              ``python -m repro_torch monitor examples/torch_quickstart.py``
+              in a subprocess: exit 0 and its roofline line.  Each
+              example's wall seconds, the training examples' median step
+              ms, accuracy or loss and all-reduces a step, and the serve
+              example's tokens/s are printed;
 5. monitor -- for each served architecture, the two-phase prefill/decode
               capture at full width and depth on a fake 4x2 mesh, under
               FakeTensorMode on ``cuda``; its per-phase collective calls
@@ -214,8 +236,9 @@ Then one JSON line with every kernel's numbers (flash decode's with its
 ``kv_seq`` rank share, whose ``launches`` are the partial op's in the
 serve phase: 0, the card being a mesh of model 1; a kernel's ``launches``
 are those of its main path: the serve phase's, summed over the ten
-served architectures and named by them in ``launches_by_arch``, RG-LRU's
-backward kernel's the lm-train phase's), each served model's times,
+served architectures, and the serve example's, each named in
+``launches_by_arch``, RG-LRU's backward kernel's the lm-train phase's),
+each served model's times, the examples' numbers,
 busy ms and idle shares, the lm-train numbers, the dry-run cells' trace
 seconds and bytes and each phase's seconds,
 the card's name and power limit as nvidia-smi prints them, and, last, the
@@ -273,6 +296,25 @@ TRAIN_STEPS = 10
 # std ~0.02 by up to 3e-3 a step
 LM_ARCHS = {"recurrentgemma_2b": None, "qwen3_8b": 8}
 LM_BATCH, LM_SEQ, LM_LR = 8, 1024, 3e-4
+# the examples phase: the user examples of examples/torch_*.py at their
+# defaults, the image classification at the paper's 64x64 (its default 32
+# is for the CPU) and for 150 steps: at 64x64 its default 30 end above its
+# 0.5 accuracy in 5 of 8 card runs from the same seeds (the card's
+# arithmetic is not deterministic), 150 in every run (PERF.md §6).
+# torch_serve_lm serves the reduced Qwen3-8B (4 layers, d 64, 4 query and
+# 4 kv heads of 16, vocab 512): 8 requests, a 32-token prompt, 24 new
+# tokens, a cache of 56 slots
+EXAMPLE_RUNS = (("image_classification", ("--image-size", "64",
+                                          "--steps", "150")),
+                ("translation", ()), ("serve_lm", ()))
+EX_BATCH, EX_PROMPT, EX_TOKENS, EX_HEADS, EX_DH, EX_D = 8, 32, 24, 4, 16, 64
+EX_SLOTS = EX_PROMPT + EX_TOKENS
+# its RMSNorm rows: (case, shape, kind)
+EXAMPLE_NORMS = (
+    ("rows(B*S,64)", (EX_BATCH * EX_PROMPT, EX_D), "prefill"),
+    ("qk(B,S,4,16)", (EX_BATCH, EX_PROMPT, EX_HEADS, EX_DH), "prefill"),
+    ("decode rows(B,64)", (EX_BATCH, EX_D), "decode"),
+    ("decode qk(B,1,4,16)", (EX_BATCH, 1, EX_HEADS, EX_DH), "decode"))
 
 
 def fail(msg: str) -> None:
@@ -338,8 +380,9 @@ def rmsnorm_cases() -> list:
     "prefill" and "decode": the serve paths' rows in bf16 -- Qwen3-8B's
     model-width rows and the qk-norm rows of its 32 query and 8 kv heads,
     RecurrentGemma-2B's rows, the other served configs' widths 1536, 2048,
-    6144 and 8192 and Chameleon-34B's 64 query heads; prefill cases are
-    timed cold too.  Kind
+    6144 and 8192 and Chameleon-34B's 64 query heads, and the rows of the
+    reduced Qwen3-8B that ``examples/torch_serve_lm.py`` serves (width 64,
+    qk rows of 16); prefill cases are timed cold too.  Kind
     "other": f16 and fp32 at Qwen's prefill rows; widths the kernels take
     at run time (lanes at 64; block at 384, at 2000 with four rows a CTA,
     at 16384 with four vectors a thread); and inputs only the scalar kernel
@@ -369,6 +412,12 @@ def rmsnorm_cases() -> list:
     ] + [
         ("qk(B,S,64,128)", (BATCH, PROMPT_LEN, 64, 128), bf16, "prefill", 0),
         ("decode qk(B,1,64,128)", (BATCH, 1, 64, 128), bf16, "decode", 0),
+    ] + [
+        # the reduced Qwen3-8B that examples/torch_serve_lm.py serves: d 64,
+        # 4 query and 4 kv heads of 16, 8 requests of a 32-token prompt
+        (f"example {case}", shape, bf16, kind, 0)
+        for case, shape, kind in EXAMPLE_NORMS
+    ] + [
         ("f16 rows(B*S,4096)", (rows, 4096), torch.float16, "other", 0),
         ("fp32 rows(B*S,4096)", (rows, 4096), torch.float32, "other", 0),
         ("width 64 (8,64)", (8, 64), bf16, "other", 0),
@@ -678,7 +727,11 @@ def check_kernels() -> dict:
             # Granite-20B's MQA, Chameleon-34B's 64/8 (Granite-3-2B's 32/8
             # at dh 64 is the "dh64" case)
             *((f"{name} B8 S128", PROMPT_LEN, PROMPT_LEN, h, kvh, dh, 0, 0,
-               bf16, 2e-2) for name, h, kvh, dh in NEW_HEADS + MOE_HEADS)):
+               bf16, 2e-2) for name, h, kvh, dh in NEW_HEADS + MOE_HEADS),
+            # torch_serve_lm's prefill: the reduced Qwen3-8B's 4/4 heads of
+            # 16 (the dh-64 instance, k-steps cut at 16) over its prompt
+            (f"example mha 4/4 dh16 B8 S{EX_PROMPT}", EX_PROMPT, EX_PROMPT,
+             EX_HEADS, EX_HEADS, EX_DH, 0, 0, bf16, 2e-2)):
         nb = 1 if case.startswith("train") else BATCH
         q = randn(nb, sq, h, dh).to(dtype)
         k = randn(nb, skv, kvh, dh).to(dtype)
@@ -746,7 +799,8 @@ def check_kernels() -> dict:
     # dh 80 (not dividing the 256 threads: flat-index output owners) and dh
     # 100 (not a multiple of 8: element-wise loads).  The transformer-backbone
     # configs' head layouts (``NEW_HEADS`` and Granite-3-2B's 32/8 at dh 64)
-    # decode the 160-slot serve cache from its first step.
+    # decode the 160-slot serve cache from its first step; the reduced
+    # Qwen3-8B of the examples phase its 56-slot one.
     errs, main = [], None
     f16, slots = torch.float16, PROMPT_LEN + NEW_TOKENS
     cases = [(f"cache_len 129 L{slots}", 129, 32, 8, 128, slots, 0, bf16,
@@ -762,6 +816,11 @@ def check_kernels() -> dict:
     cases += [(f"{name} cache_len 129 L{slots}", 129, h, kvh, dh, slots, 0,
                bf16, bf16) for name, h, kvh, dh in
               NEW_HEADS + MOE_HEADS + (("gqa 32/8 dh64", 32, 8, 64),)]
+    # torch_serve_lm's decode: 4/4 heads of 16 over its 56-slot cache, at
+    # the first step and the last
+    cases += [(f"example mha 4/4 dh16 cache_len {n} L{EX_SLOTS}", n,
+               EX_HEADS, EX_HEADS, EX_DH, EX_SLOTS, 0, bf16, bf16)
+              for n in (EX_PROMPT + 1, EX_SLOTS)]
     cases += [
         (f"fp32 q/cache dh256 G10 L{slots}", 129, 10, 1, 256, slots, 0, f32,
          f32),
@@ -2415,6 +2474,94 @@ def run_lm_reduced(arch: str) -> None:
         fail(f"{cfg.name}: the resumed run differs from the straight one")
 
 
+# ---------------------------------------------------------------------------
+# the examples phase
+# ---------------------------------------------------------------------------
+def load_example(name: str):
+    """``examples/torch_<name>.py`` of the checkout, as a module."""
+    import importlib.util
+
+    path = ROOT / "examples" / f"torch_{name}.py"
+    spec = importlib.util.spec_from_file_location(f"torch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_examples() -> tuple[dict, dict]:
+    """The user examples on the card, each through its ``main(argv)`` in
+    this process (``EXAMPLE_RUNS``; an example's own assertion fails the
+    run), then the quickstart through ``python -m repro_torch monitor``.
+    The training examples open and destroy a one-rank NCCL group, so they
+    run before the first fake group (translation's capture) is made.
+    torch_serve_lm's launches, the counters zeroed just before its
+    ``main`` and read just after, must be ``expected_launches`` of its
+    warm-up generate and its timed one.  Returns each example's numbers
+    and the serve example's launch counts."""
+    from repro_torch.launch.serve import WARMUP_TOKENS, model_config
+
+    out, counts = {}, None
+    for name, argv in EXAMPLE_RUNS:
+        example = load_example(name)
+        if name == "serve_lm":
+            zero_counts()
+        t0 = time.perf_counter()
+        res = example.main([*argv, "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        if name == "serve_lm":
+            counts = read_counts()
+        row = {"wall_s": wall}
+        if name == "image_classification":
+            row.update(median_step_ms=res["median_step_ms"], acc=res["acc"],
+                       loss=res["losses"][-1],
+                       allreduces_per_step=res["allreduce_calls"])
+            log(f"[examples] torch_image_classification {' '.join(argv)}: "
+                f"{wall:.1f} s | median step {res['median_step_ms']:.2f} ms | final "
+                f"acc {res['acc']:.2f}, loss {res['losses'][-1]:.4f} | "
+                f"{res['allreduce_calls']} all-reduces a step")
+        elif name == "translation":
+            rep = res["report"]
+            calls = {ph: sum(op.kind == "all-reduce" for op in rep.compiled_ops
+                             if op.phase == ph) for ph in rep.phase_names()}
+            row.update(median_step_ms=res["median_step_ms"],
+                       loss=res["losses"][-1], first_loss=res["losses"][0],
+                       allreduces_by_phase=calls)
+            log(f"[examples] torch_translation: {wall:.1f} s | median step "
+                f"{res['median_step_ms']:.2f} ms | loss "
+                f"{res['losses'][0]:.4f} -> {res['losses'][-1]:.4f} | "
+                f"all-reduces a step by phase {calls}")
+        else:
+            row.update(tokens_per_s=res["tokens_per_s"],
+                       prefill_ms=res["prefill_ms"],
+                       decode_ms_per_token=res["decode_ms_per_token"])
+            log(f"[examples] torch_serve_lm: {wall:.1f} s | "
+                f"{res['tokens_per_s']:.1f} tok/s | prefill "
+                f"{res['prefill_ms']:.2f} ms, decode "
+                f"{res['decode_ms_per_token']:.2f} ms/token")
+        out[name] = row
+        del res
+        gc.collect()
+    cfg = model_config("qwen3_8b", reduced=True)
+    warm, timed = (expected_launches(cfg, WARMUP_TOKENS - 1),
+                   expected_launches(cfg, EX_TOKENS - 1))
+    want = {k: warm[k] + timed[k] for k in warm}
+    log(f"[examples] torch_serve_lm launches {counts} (expected {want})")
+    if counts != want:
+        fail(f"torch_serve_lm: launches {counts}, expected {want}")
+
+    t0 = time.perf_counter()
+    text = cli("monitor", "examples/torch_quickstart.py")
+    wall = time.perf_counter() - t0
+    line = next((ln for ln in text.splitlines()
+                 if ln.startswith("roofline: compute")), None)
+    log(f"[examples] python -m repro_torch monitor "
+        f"examples/torch_quickstart.py: {wall:.1f} s | {line}")
+    if line is None or "dominant=" not in text:
+        fail("the quickstart printed no roofline")
+    out["quickstart"] = {"wall_s": wall}
+    return out, counts
+
+
 # Phase 7's lint findings of every phase-5 capture, rule -> count.  A
 # ``cuda`` mesh's shard-to-shard redistribution is one all-to-all, which no
 # rule flags; GNMT's startup Broadcast is an all-gather of 8 copies of
@@ -2986,6 +3133,9 @@ def main() -> None:
         run_lm_reduced(arch)
     seconds["lm-train"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    examples, by_arch["torch_serve_lm"] = run_examples()
+    seconds["examples"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     reports = {arch: run_monitor(arch) for arch in ARCHS}
     for arch in BACKBONE_ARCHS + SSM_ARCHS + MOE_ARCHS:
         run_monitor(arch)
@@ -3035,6 +3185,7 @@ def main() -> None:
          "grad_max_abs_err": grad_errs[name]}
         for name in KERNEL_META],
         "serve": served,
+        "examples": examples,
         "lm_train": {a: {k: r[k] for k in (
             "median_step_ms", "tokens_per_s", "max_memory_gib", "busy_ms",
             "bwd_step_ms", "bwd_ms", "bwd_share", "tflop", "bound_ms")}

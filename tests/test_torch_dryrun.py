@@ -466,6 +466,79 @@ def test_reduced_sp_cells_pinned_beside_reference(sname, monkeypatch):
     assert tuple(ref_mem[k] for k in MEM_KEYS) == REF_MEM_SP[sname]
 
 
+# the recurrent and MoE families' prefill_32k under ``sp=True`` on the 4x2
+# mesh, per kind (calls, payload bytes), beside the reference's
+# ``lower_cell(..., sp=True).compile()``.  Both name ``seq -> model``; they
+# differ in where the recurrences run.  The reference constrains the RG-LRU
+# inputs to ("batch", "seq", "rnn") and the xLSTM up-projection to
+# ("batch", "seq", "inner"), and its Sharder reuses no mesh axis, so the
+# sequence stays split through the recurrence: GSPMD runs the scan on the
+# sequence shards and passes the carries between them by
+# collective-permutes, and reshards activations by all-to-alls (Grok-1's
+# einsum dispatch moves its tokens the same way).  The port names ``None``
+# for the sequence in ``REC_AXES`` (models/rglru.py) and ``INNER``
+# (models/xlstm.py): each recurrence (the conv and RG-LRU scan; the mLSTM
+# parallel form and the sLSTM loop) and each MoE local step takes the whole
+# sequence, gathered along it over ``model`` (the 32-128 MiB gathers; a
+# CUDA mesh's all-to-all to channel shards is an all-gather and a chunk on
+# a CPU mesh), its products' partial sums reduce-scattered back onto the
+# sequence shards (the 32-64 MiB reduce-scatters), and each weight gathered
+# whole for the products on sequence shards (the small gathers, as for
+# Qwen3-8B above).  DTensor cannot express GSPMD's permute-based scan
+# without rewriting the recurrence, so both tables are pinned (ROADMAP
+# queue 3 item 23).
+PORT_SP_FAMILIES = {
+    "recurrentgemma_2b": {"all-gather": (80, 1751293952),
+                          "reduce-scatter": (10, 2281734144)},
+    "xlstm_1_3b": {"all-gather": (58, 5172533248),
+                   "reduce-scatter": (14, 2348843008),
+                   "all-reduce": (2, 536870912)},
+    "grok_1_314b": {"all-gather": (72, 2690603008),
+                    "reduce-scatter": (6, 671121408)},
+}
+REF_SP_FAMILIES = {
+    "recurrentgemma_2b": {"all-gather": (58, 809050112),
+                          "all-to-all": (93, 3221716992),
+                          "collective-permute": (69, 157696),
+                          "all-reduce": (4, 20608)},
+    "xlstm_1_3b": {"all-gather": (38, 1679900672),
+                   "all-to-all": (12, 2684551168),
+                   "collective-permute": (4, 14464),
+                   "all-reduce": (6, 138957696)},
+    "grok_1_314b": {"all-reduce": (6, 2658432),
+                    "all-gather": (21, 622562304),
+                    "all-to-all": (7, 11425284096),
+                    "collective-permute": (1, 2048)},
+}
+
+
+@pytest.mark.parametrize("arch", sorted(PORT_SP_FAMILIES))
+def test_reduced_sp_families_pinned_beside_reference(arch, monkeypatch):
+    """The reduced RecurrentGemma-2B, xLSTM-1.3B and Grok-1 prefill_32k
+    cells under ``sp=True`` on the 4x2 mesh: the port's per-kind table and
+    the reference's, pinned side by side.  The port moves no carry between
+    sequence shards (no permute): each recurrence runs on the whole
+    sequence."""
+    from repro import configs as ref_configs
+    from repro.compat import make_mesh
+    from repro.core import hlo_parser
+    from repro_torch.core.summary import summarize
+
+    reduced = configs.config
+    monkeypatch.setattr(configs, "config",
+                        lambda a, reduced_=False: reduced(a, reduced=True))
+    cell = dryrun.capture_cell(arch, "prefill_32k", mesh_4x2(), sp=True)
+    assert _kinds(summarize(cell["ops"])) == PORT_SP_FAMILIES[arch]
+
+    ref_config = ref_configs.config
+    monkeypatch.setattr(ref_configs, "config",
+                        lambda a, reduced_=False: ref_config(a, reduced=True))
+    lowered, _ = ref_dryrun.lower_cell(
+        arch, "prefill_32k", make_mesh((4, 2), ("data", "model")), sp=True)
+    ops = hlo_parser.parse_hlo_collectives(lowered.compile().as_text())
+    assert _kinds(hlo_parser.summarize(ops)) == REF_SP_FAMILIES[arch]
+
+
 def test_sequence_parallel_option(tmp_path):
     """``python -m repro_torch dryrun --sp --tag sp`` (the CLI, which
     forwards to the dry run) captures under the ``seq -> model`` rule and

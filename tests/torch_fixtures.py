@@ -18,10 +18,11 @@ def mesh_4x2():
     return make_test_mesh()
 
 
-def ref_serve_cell(cfg):
+def ref_serve_cell(cfg, max_len: int = 48):
     """The reference's ``serve`` sweep cell (its ``sweep._build_serve``) for
-    any ``cfg``: batch 8, prompt 32, cache 48, stub bf16 embeddings where
-    the config reads them.  Returns the cell's ``build(mesh)``."""
+    any ``cfg``: batch 8, prompt 32, a cache of ``max_len`` (48 in the
+    sweep), stub bf16 embeddings where the config reads them.  Returns the
+    cell's ``build(mesh)``."""
     import jax
     import jax.numpy as jnp
     from repro.models import build_model
@@ -30,8 +31,8 @@ def ref_serve_cell(cfg):
 
     def build(mesh):
         model, shd = build_model(cfg), Sharder(mesh)
-        cache_sh = cache_shardings(model, ServeConfig(max_len=48, batch=8),
-                                   shd)
+        cache_sh = cache_shardings(
+            model, ServeConfig(max_len=max_len, batch=8), shd)
 
         def inputs(s):
             if cfg.input_mode == "embeddings":
@@ -41,12 +42,13 @@ def ref_serve_cell(cfg):
 
         return {"captures": [
             {"phase": "prefill", "name": "prefill",
-             "fn": lambda p, b: model.prefill(p, b, shd, max_len=48),
+             "fn": lambda p, b: model.prefill(p, b, shd, max_len=max_len),
              "args": (model.shapes(), inputs(32)),
              "kwargs": {"out_shardings": (None, cache_sh)}},
             {"phase": "decode", "name": "decode",
              "fn": lambda p, c, b: model.decode_step(p, c, b, shd),
-             "args": (model.shapes(), model.cache_shapes(8, 48), inputs(1)),
+             "args": (model.shapes(), model.cache_shapes(8, max_len),
+                      inputs(1)),
              "kwargs": {"in_shardings": (None, cache_sh, None),
                         "out_shardings": (None, cache_sh)}}]}
     return build
