@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import spans
 from .. import build
 from .ref import attention_bwd, attention_ref
 
@@ -56,8 +57,10 @@ def _setup(ctx, inputs, output):
 
 def _backward(ctx, do):
     q, k, v = ctx.saved_tensors
-    return (*attention_bwd(do, q, k, v, causal=ctx.causal, window=ctx.window,
-                           q_offset=ctx.q_offset), None, None, None)
+    with spans.span("attention"):
+        grads = attention_bwd(do, q, k, v, causal=ctx.causal,
+                              window=ctx.window, q_offset=ctx.q_offset)
+    return (*grads, None, None, None)
 
 
 _flash_attention.register_autograd(_backward, setup_context=_setup)
@@ -91,5 +94,6 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("flash_attention kernel needs contiguous q/k/v")
     elif q.device.type != "cpu":
         raise ValueError(f"attend runs on cuda or cpu, not {q.device}")
-    return _flash_attention(q, k, v, bool(causal), int(window),
-                            int(q_offset))
+    with spans.span("attention"):
+        return _flash_attention(q, k, v, bool(causal), int(window),
+                                int(q_offset))

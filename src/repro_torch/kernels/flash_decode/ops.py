@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import torch
 
+from ... import spans
 from .. import build
 from .ref import decode_bwd, decode_partial_ref, decode_ref
 
@@ -185,7 +186,8 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor,
     """q: (B,H,dh); k/v: (B,L,KVH,dh); cache_len: int32 scalar tensor on
     q's device -> (B,H,dh)."""
     _check(q, k_cache, v_cache, cache_len, "decode_attend")
-    return _flash_decode(q, k_cache, v_cache, cache_len, int(window))
+    with spans.span("attention"):
+        return _flash_decode(q, k_cache, v_cache, cache_len, int(window))
 
 
 def decode_attend_partial(q: torch.Tensor, k_shard: torch.Tensor,
@@ -202,5 +204,6 @@ def decode_attend_partial(q: torch.Tensor, k_shard: torch.Tensor,
     if not 0 <= kv_offset <= lmax - k_shard.shape[1]:
         raise ValueError(f"shard of {k_shard.shape[1]} slots at kv_offset "
                          f"{kv_offset} does not lie in a cache of {lmax}")
-    return _flash_decode_partial(q, k_shard, v_shard, cache_len,
-                                 int(kv_offset), int(lmax), int(window))
+    with spans.span("attention"):
+        return _flash_decode_partial(q, k_shard, v_shard, cache_len,
+                                     int(kv_offset), int(lmax), int(window))

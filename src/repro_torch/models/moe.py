@@ -42,6 +42,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
+
 from .common import ModelConfig, Spec
 
 MOE_GROUP = 512  # tokens per dispatch group
@@ -117,23 +119,26 @@ def _dispatch_in(x, router, wi, *, cfg: ModelConfig, group: int, c: int,
     e, k = cfg.n_experts, cfg.top_k
     ng = s // group
     dt = x.dtype
-    xg = x.reshape(b, ng, group, d)
-    logits, probs, gate_vals, gate_idx = route(xg, router, k)
-    dispatch, combine, sel_sum = dispatch_tensors(gate_vals, gate_idx, e, c)
     e_loc = wi.shape[0]
-    dispatch = dispatch[..., e0:e0 + e_loc, :]
-    combine = combine[..., e0:e0 + e_loc, :]
-    # "bGsec,bGsd->beGcd", then the experts first
-    disp = dispatch.to(dt).reshape(b * ng, group, e_loc * c).transpose(1, 2)
-    xin = torch.bmm(disp, xg.reshape(b * ng, group, d))
-    xin = xin.reshape(b * ng, e_loc, c, d).transpose(0, 1).reshape(
-        e_loc, b * ng * c, d)
-    h = torch.bmm(xin, wi.to(dt))                      # "beGcd,edF->beGcF"
-    if not with_aux:
-        return h, combine
-    stats = torch.cat([sel_sum.sum(dim=(0, 1, 2)), probs.sum(dim=(0, 1, 2)),
-                       (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]])
-    return h, combine, stats[None] / share
+    with spans.span("moe.dispatch"):
+        xg = x.reshape(b, ng, group, d)
+        logits, probs, gate_vals, gate_idx = route(xg, router, k)
+        dispatch, combine, sel_sum = dispatch_tensors(gate_vals, gate_idx,
+                                                      e, c)
+        dispatch = dispatch[..., e0:e0 + e_loc, :]
+        combine = combine[..., e0:e0 + e_loc, :]
+        # "bGsec,bGsd->beGcd", then the experts first
+        disp = dispatch.to(dt).reshape(b * ng, group, e_loc * c)
+        xin = torch.bmm(disp.transpose(1, 2), xg.reshape(b * ng, group, d))
+        xin = xin.reshape(b * ng, e_loc, c, d).transpose(0, 1).reshape(
+            e_loc, b * ng * c, d)
+        if with_aux:
+            lse2 = (torch.logsumexp(logits, dim=-1) ** 2).sum()[None]
+            stats = torch.cat([sel_sum.sum(dim=(0, 1, 2)),
+                               probs.sum(dim=(0, 1, 2)), lse2])[None] / share
+    with spans.span("moe.experts"):
+        h = torch.bmm(xin, wi.to(dt))                  # "beGcd,edF->beGcF"
+    return (h, combine, stats) if with_aux else (h, combine)
 
 
 def _combine_out(act, wo, combine):
@@ -210,6 +215,11 @@ def moe_block(params, x, cfg: ModelConfig, shd, group: int = MOE_GROUP,
     ``with_aux=False`` (serving, which discards it, as the reference's
     compiled steps drop it) the routing statistics are not reduced and
     ``aux`` is None."""
+    with spans.span("moe"):
+        return _moe_block(params, x, cfg, shd, group, with_aux)
+
+
+def _moe_block(params, x, cfg: ModelConfig, shd, group: int, with_aux: bool):
     b, s, d = x.shape
     e = cfg.n_experts
     if s % group != 0:
@@ -220,8 +230,9 @@ def moe_block(params, x, cfg: ModelConfig, shd, group: int = MOE_GROUP,
 
     if shd.mesh is None:
         out = _dispatch_in(x, router, wi, e0=0, **kw)
-        gate, up = torch.chunk(out[0], 2, dim=-1)
-        y = _combine_out(F.silu(gate) * up, wo, out[1])[0]
+        with spans.span("moe.experts"):
+            gate, up = torch.chunk(out[0], 2, dim=-1)
+            y = _combine_out(F.silu(gate) * up, wo, out[1])[0]
         aux = _aux_loss(out[2][0], b * s, e) if with_aux else None
         return y, aux
 
@@ -240,16 +251,17 @@ def moe_block(params, x, cfg: ModelConfig, shd, group: int = MOE_GROUP,
         (x, router, wi), (("batch", None, None), (None, None),
                           ("expert", None, "mlp")),
         out_placements=tuple(outs), grad_placements=pl["grad_a"])
-    # gate and up: gathered along the hidden dim where it is sharded
-    gate, up = torch.chunk(res[0], 2, dim=-1)
-    act = (F.silu(gate) * up).redistribute(shd.mesh, pl["act"])
-    # the shards' shares stacked along a leading dim and summed there:
-    # DTensor's own sum (a Partial over the shards), whose backward hands
-    # each shard the whole gradient
-    y = shd.local(_combine_out, (act, wo, res[1]),
-                  (None, ("expert", "mlp", None), None),
-                  out_placements=pl["y"],
-                  grad_placements=pl["grad_b"]).sum(dim=0)
+    with spans.span("moe.experts"):
+        # gate and up: gathered along the hidden dim where it is sharded
+        gate, up = torch.chunk(res[0], 2, dim=-1)
+        act = (F.silu(gate) * up).redistribute(shd.mesh, pl["act"])
+        # the shards' shares stacked along a leading dim and summed there:
+        # DTensor's own sum (a Partial over the shards), whose backward
+        # hands each shard the whole gradient
+        y = shd.local(_combine_out, (act, wo, res[1]),
+                      (None, ("expert", "mlp", None), None),
+                      out_placements=pl["y"],
+                      grad_placements=pl["grad_b"]).sum(dim=0)
     aux = None
     if with_aux:
         aux = _aux_loss(shd.constraint(res[2].sum(dim=0), (None,)), b * s, e)

@@ -23,6 +23,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import spans
+
 from . import attention, layers, moe as moe_lib
 from .common import (ModelConfig, init_params, layer_of, param_axes,
                      param_shapes, rms_norm)
@@ -141,7 +143,8 @@ class TransformerLM:
                            remat or "dots")
         aux = None
         for l in range(cfg.n_layers):
-            x, a = layer(x, layer_of(params["layers"], l))
+            with spans.span("layer", layer=l):
+                x, a = layer(x, layer_of(params["layers"], l))
             if a is not None:
                 aux = a if aux is None else aux + a
         x = rms_norm(x, params["final_norm"], cfg.norm_eps, shd,
@@ -206,8 +209,9 @@ class TransformerLM:
         for l in range(self.cfg.n_layers):
             layer_cache = {"k": cache["k"][l], "v": cache["v"][l],
                            "len": cache["len"]}
-            x, _, _ = self._layer_fn(x, layer_of(params["layers"], l), shd,
-                                     cache=layer_cache)
+            with spans.span("layer", layer=l):
+                x, _, _ = self._layer_fn(x, layer_of(params["layers"], l),
+                                         shd, cache=layer_cache)
         cache["len"].add_(x.shape[1])
         return self._logits(params, x, shd), cache
 
@@ -223,8 +227,9 @@ class TransformerLM:
         spec = {"max_len": max_len, "dtype": CACHE_DTYPE}
         ks, vs = [], []
         for l in range(self.cfg.n_layers):
-            x, _, new_cache = self._layer_fn(
-                x, layer_of(params["layers"], l), shd, cache=spec)
+            with spans.span("layer", layer=l):
+                x, _, new_cache = self._layer_fn(
+                    x, layer_of(params["layers"], l), shd, cache=spec)
             ks.append(new_cache["k"])
             vs.append(new_cache["v"])
         cache = {"k": torch.stack(ks), "v": torch.stack(vs),

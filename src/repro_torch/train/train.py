@@ -26,10 +26,12 @@ Where the port differs from the reference:
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable
 
 import torch
 
+from repro_torch import spans
 from repro_torch.models.common import tree_leaves, tree_unflatten
 from repro_torch.optim import (OptConfig, apply_updates, init_opt_state,
                                opt_state_axes)
@@ -100,8 +102,53 @@ def make_train_step(model, opt_cfg: OptConfig, train_cfg: TrainConfig,
     a = train_cfg.microbatches
     bf16_grads = train_cfg.grad_dtype == "bfloat16"
 
+    steps = itertools.count()           # the ``step`` identifier of its spans
+
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        with spans.span("train.step", step=next(steps)):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch) -> tuple[TrainState, dict]:
         params = state["params"]
+        with spans.span("train.leaves"):
+            loss_params, bufs = _loss_leaves(params)
+
+        n = next(iter(batch.values())).shape[0] // max(a, 1)
+        total = 0
+        for i in range(max(a, 1)):
+            with spans.span("train.microbatch", microbatch=i):
+                mb = batch if a <= 1 else {k: v[i * n:(i + 1) * n]
+                                            for k, v in batch.items()}
+                with spans.span("train.forward"):
+                    loss, metrics = model.loss_fn(loss_params, mb, shd,
+                                                  remat=train_cfg.remat)
+                with spans.span("train.backward"):
+                    loss.backward()
+                total = total + loss.detach()
+        with torch.no_grad():
+            if a > 1:
+                for buf in bufs:
+                    buf.div_(a)
+                loss = total / a
+                metrics = {"xent": loss,
+                           "aux": torch.zeros((), dtype=torch.float32,
+                                              device=loss.device)}
+            else:
+                loss = total
+                metrics = {k: v.detach() for k, v in metrics.items()}
+        grads = tree_unflatten(params, bufs)
+        with spans.span("train.optimizer"):
+            _, _, stats = apply_updates(params, grads, state["opt"], opt_cfg,
+                                        state["step"])
+        del grads, bufs
+        with torch.no_grad():
+            state["step"].add_(1)
+        return state, dict(metrics, loss=loss, **stats)
+
+    def _loss_leaves(params):
+        """The loss's parameters, each stacked tensor as per-layer leaves
+        whose gradients are added into the accumulation buffers, and the
+        buffers."""
         flat = tree_leaves(params)
         stacked = [_stacked(ax) for ax in tree_leaves(model.axes())]
         accum = (getattr(torch, train_cfg.accum_dtype) if a > 1 else None)
@@ -126,34 +173,6 @@ def make_train_step(model, opt_cfg: OptConfig, train_cfg: TrainConfig,
                 # then cast to their compute dtype, also before a gather)
                 per = [t.to(torch.bfloat16) for t in per]
             loss_leaves.append(per if st else per[0])
-        loss_params = tree_unflatten(params, loss_leaves)
-
-        n = next(iter(batch.values())).shape[0] // max(a, 1)
-        total = 0
-        for i in range(max(a, 1)):
-            mb = batch if a <= 1 else {k: v[i * n:(i + 1) * n]
-                                        for k, v in batch.items()}
-            loss, metrics = model.loss_fn(loss_params, mb, shd,
-                                          remat=train_cfg.remat)
-            loss.backward()
-            total = total + loss.detach()
-        with torch.no_grad():
-            if a > 1:
-                for buf in bufs:
-                    buf.div_(a)
-                loss = total / a
-                metrics = {"xent": loss,
-                           "aux": torch.zeros((), dtype=torch.float32,
-                                              device=loss.device)}
-            else:
-                loss = total
-                metrics = {k: v.detach() for k, v in metrics.items()}
-        grads = tree_unflatten(params, bufs)
-        _, _, stats = apply_updates(params, grads, state["opt"], opt_cfg,
-                                    state["step"])
-        del grads, bufs
-        with torch.no_grad():
-            state["step"].add_(1)
-        return state, dict(metrics, loss=loss, **stats)
+        return tree_unflatten(params, loss_leaves), bufs
 
     return train_step
