@@ -489,8 +489,8 @@ def launch_floor_ms() -> float:
 def kernel_counters() -> dict:
     """Each kernel's launch counter, by kernel name: the wrapper module and
     the attribute its CUDA branch adds one to at every launch (RG-LRU's
-    wrapper counts its forward and its backward kernel apart, flash
-    decode's its whole-cache and its partial op)."""
+    and flash attention's wrappers count their forward and backward kernels
+    apart, flash decode's its whole-cache and its partial op)."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.rglru import ops as rg_ops
@@ -501,7 +501,8 @@ def kernel_counters() -> dict:
             "flash_decode": (fd_ops, "launches"),
             "flash_decode_partial": (fd_ops, "partial_launches"),
             "rglru": (rg_ops, "launches"),
-            "rglru_bwd": (rg_ops, "bwd_launches")}
+            "rglru_bwd": (rg_ops, "bwd_launches"),
+            "flash_attention_bwd": (fa_ops, "bwd_launches")}
 
 
 def zero_counts() -> None:
@@ -618,6 +619,210 @@ def rglru_launch(plan, shape, backward: bool) -> str:
 
 
 # ---------------------------------------------------------------------------
+# flash attention's backward kernels: cases, checks and timings (the cases
+# also run by the card tests in tests/test_torch_flash_attention_chip.py)
+# ---------------------------------------------------------------------------
+# (case, b, sq, skv, h, kvh, dh, causal, window, q_offset, dtype name):
+# the three training shapes (Granite-3-2B's microbatch in the benchmark's
+# train cell, the lm-train phase's Qwen3-8B and RecurrentGemma-2B), then
+# groups of 1, 8 and MQA 48/1, non-causal, windows, q_offset with Sq < Skv
+# (a sequence-parallel shard), ragged Sq/Skv, rows that see no key, a head
+# dim that pads its k-steps (40), one that takes element-wise loads (100),
+# the reduced model's 16, and f16
+FLASH_BWD_TRAIN = (
+    ("granite train gqa 32/8 dh64 B4 S1024", 4, 1024, 1024, 32, 8, 64, True,
+     0, 0, "bfloat16"),
+    ("qwen train gqa 32/8 dh128 B1 S1024", 1, 1024, 1024, 32, 8, 128, True,
+     0, 0, "bfloat16"),
+    ("rg train mqa 10/1 dh256 B1 S1024 window2048", 1, 1024, 1024, 10, 1,
+     256, True, 2048, 0, "bfloat16"),
+)
+FLASH_BWD_CASES = FLASH_BWD_TRAIN + (
+    ("mha 8/8 dh64 non-causal B2 S256", 2, 256, 256, 8, 8, 64, False, 0, 0,
+     "bfloat16"),
+    ("gqa 64/8 dh128 B2 S256", 2, 256, 256, 64, 8, 128, True, 0, 0,
+     "bfloat16"),
+    ("mqa 48/1 dh128 B2 S256", 2, 256, 256, 48, 1, 128, True, 0, 0,
+     "bfloat16"),
+    ("gqa 32/8 dh128 window100 B2 S300", 2, 300, 300, 32, 8, 128, True, 100,
+     0, "bfloat16"),
+    ("mqa 10/1 dh256 window100 B2 S256", 2, 256, 256, 10, 1, 256, True, 100,
+     0, "bfloat16"),
+    ("q_offset128 Sq64 Skv192 gqa 32/8 dh64", 2, 64, 192, 32, 8, 64, True, 0,
+     128, "bfloat16"),
+    ("q_offset96 Sq100 Skv200 window50 gqa 16/4 dh128", 1, 100, 200, 16, 4,
+     128, True, 50, 96, "bfloat16"),
+    ("ragged Sq100 gqa 32/8 dh64", 2, 100, 100, 32, 8, 64, True, 0, 0,
+     "bfloat16"),
+    ("ragged non-causal Sq77 Skv133 gqa 8/2 dh128", 2, 77, 133, 8, 2, 128,
+     False, 0, 0, "bfloat16"),
+    ("masked rows Sq64 Skv48 q_offset40 window20 gqa 8/2 dh64", 2, 64, 48, 8,
+     2, 64, True, 20, 40, "bfloat16"),
+    ("all rows masked Sq64 Skv64 q_offset200 window100 gqa 8/2 dh128", 1, 64,
+     64, 8, 2, 128, True, 100, 200, "bfloat16"),
+    ("dh40 gqa 8/2 S128", 2, 128, 128, 8, 2, 40, True, 0, 0, "bfloat16"),
+    ("dh100 gqa 8/2 S128", 2, 128, 128, 8, 2, 100, True, 0, 0, "bfloat16"),
+    ("dh16 mha 4/4 B8 S32", 8, 32, 32, 4, 4, 16, True, 0, 0, "bfloat16"),
+    ("f16 gqa 32/8 dh64 B2 S256", 2, 256, 256, 32, 8, 64, True, 0, 0,
+     "float16"),
+)
+# gradients of order 1 in bf16/f16: the forward kernel's 2e-2, of max(1,
+# the largest plain gradient); P and dS are rounded to the input dtype as
+# operands and each gradient once on the way out (2^-9 relative each in
+# bf16), against the plain version's fp32 throughout
+FLASH_BWD_TOL = 2e-2
+
+
+def flash_bwd_inputs(case, gen) -> tuple:
+    """q, k, v and the output cotangent of a case, drawn on the card."""
+    import torch
+
+    _, b, sq, skv, h, kvh, dh, _, _, _, dtype = case
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            getattr(torch, dtype))
+
+    return (randn(b, sq, h, dh), randn(b, skv, kvh, dh),
+            randn(b, skv, kvh, dh), randn(b, sq, h, dh))
+
+
+def flash_bwd_check(case, gen) -> dict:
+    """One case: ``attend`` forward and backward on the card against the
+    plain backward (``attention_bwd``) in fp32 on the same values.  A row
+    that sees no key takes a zero cotangent for the comparison, since the
+    plain version gives such a row the uniform softmax: the kernel's dq
+    there must be exactly 0, and its dk and dv what the zeroed cotangent
+    gives, bit for bit.  A repeat must equal the first call bit for bit
+    (no atomics), and the forward and backward counters rise by one each.
+    Returns the numbers."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd, visible
+
+    _, b, sq, skv, h, kvh, dh, causal, window, q_offset, _ = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, do = flash_bwd_inputs(case, gen)
+    seen = visible(sq, skv, device="cuda", **kw).any(-1)
+    do_seen = do * seen[None, :, None, None].to(do.dtype)
+
+    def grads(dy):
+        ts = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        fa_ops.attend(*ts, **kw).backward(dy)
+        return [t.grad for t in ts]
+
+    before = (fa_ops.launches, fa_ops.bwd_launches)
+    got = grads(do)
+    torch.cuda.synchronize()
+    counts = (fa_ops.launches - before[0], fa_ops.bwd_launches - before[1])
+    again, zeroed = grads(do), grads(do_seen)
+    want = attention_bwd(do_seen.float(), q.float(), k.float(), v.float(),
+                         **kw)
+    errs = [(g.float() - w).abs().max().item() for g, w in zip(got, want)]
+    tols = [FLASH_BWD_TOL * max(1.0, w.abs().max().item()) for w in want]
+    torch.cuda.synchronize()
+    return {"errs": errs, "tols": tols,
+            "finite": all(bool(torch.isfinite(g).all()) for g in got),
+            "unseen_dq_zero": not bool(got[0][:, ~seen].any()),
+            "unseen_rows_add_nothing": all(
+                torch.equal(g, z) for g, z in zip(got, zeroed)),
+            "repeat_equal": all(torch.equal(g, a)
+                                for g, a in zip(got, again)),
+            "counts": counts, "unseen_rows": int((~seen).sum().item())}
+
+
+def flash_bwd_ok(r: dict) -> bool:
+    return (r["finite"] and all(e <= t for e, t in zip(r["errs"], r["tols"]))
+            and r["unseen_dq_zero"] and r["unseen_rows_add_nothing"]
+            and r["repeat_equal"] and r["counts"] == (1, 1))
+
+
+def flash_bwd_times(case, gen) -> dict:
+    """Median device ms of one backward at a case's shape: the kernels
+    (``_launch_bwd`` from a saved forward), the plain ``attention_bwd``
+    and, as the library's yardstick, SDPA's own backward (timed only,
+    never called by the port); the forward with and without its lse; the
+    bound of five products over the visible pairs at 989 TFLOP/s or of q,
+    k, v, o, dO read and dq, dk, dv written once at 3.35 TB/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import attention_bwd, visible
+
+    _, b, sq, skv, h, kvh, dh, causal, window, q_offset, _ = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    q, k, v, do = flash_bwd_inputs(case, gen)
+    o, lse = fa_ops._launch_lse(q, k, v, causal, window, q_offset)
+    t = {"fwd_ms": time_ms(lambda: fa_ops._launch(q, k, v, causal, window,
+                                                  q_offset)),
+         "fwd_lse_ms": time_ms(lambda: fa_ops._launch_lse(
+             q, k, v, causal, window, q_offset)),
+         "ms": time_ms(lambda: fa_ops._launch_bwd(
+             do, q, k, v, o, lse, causal, window, q_offset))}
+    del o, lse
+    t["plain_ms"] = time_ms(lambda: attention_bwd(do, q, k, v, **kw),
+                            iters=5, reps=3)
+    mask = visible(sq, skv, device="cuda", **kw)
+    plain_causal = (causal and not q_offset and sq == skv
+                    and (not window or window >= skv))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    out = F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=None if plain_causal else mask,
+        is_causal=plain_causal, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    t["library_ms"] = time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    pairs = int(mask.sum().item())
+    t["bound_ms"], t["bound_by"] = bound_ms(
+        q.element_size() * 4 * (q.numel() + k.numel()),
+        10.0 * b * h * pairs * dh)
+    return t
+
+
+def check_flash_bwd(launched: dict) -> dict:
+    """Phase 2's backward check: every case of :data:`FLASH_BWD_CASES`
+    held by :func:`flash_bwd_check`, then the three training shapes timed
+    (:func:`flash_bwd_times`).  Returns the numbers for the JSON line."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs, abs_errs, train_shapes, main = [], [], {}, None
+    for case in FLASH_BWD_CASES:
+        r = flash_bwd_check(case, gen)
+        launched["flash_attention_bwd"].add((getattr(torch, case[-1]),
+                                             case[6]))
+        ok = flash_bwd_ok(r)
+        log(f"[kernels] flash_attention_bwd {case[0]}: max_abs_err dq/dk/dv "
+            + "/".join(f"{e:.3e}" for e in r["errs"]) + " (tol "
+            + "/".join(f"{t:.3g}" for t in r["tols"]) + f"); finite "
+            f"{r['finite']}, {r['unseen_rows']} rows see no key (dq 0: "
+            f"{r['unseen_dq_zero']}, add nothing: "
+            f"{r['unseen_rows_add_nothing']}), repeat bit for bit "
+            f"{r['repeat_equal']}, launches fwd/bwd {r['counts']} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"flash_attention_bwd {case[0]}: {r}")
+        errs.append(max(e / t for e, t in zip(r["errs"], r["tols"])))
+        abs_errs.append(max(r["errs"]))
+    for case in FLASH_BWD_TRAIN:
+        t = flash_bwd_times(case, gen)
+        log(f"[kernels] flash_attention_bwd {case[0]}: kernel "
+            f"{t['ms']:.4f} ms | bound {t['bound_ms']:.4g} ms "
+            f"({t['bound_by']}) | plain {t['plain_ms']:.4f} ms | library "
+            f"(SDPA backward) {t['library_ms']:.4f} ms | forward "
+            f"{t['fwd_ms']:.4f} ms, with lse {t['fwd_lse_ms']:.4f} ms")
+        train_shapes[case[0]] = t
+        if main is None:
+            main = {k: t[k] for k in ("ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")}
+    return dict(main, max_abs_err=max(abs_errs), max_err_over_tol=max(errs),
+                train_shapes=train_shapes)
+
+
+# ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_kernels() -> dict:
@@ -657,7 +862,7 @@ def check_kernels() -> dict:
     # -- RMSNorm: every case of rmsnorm_cases(), each against the plain
     # version on the same inputs, with its launch plan; then the launch floor
     launched = {"rmsnorm": set(), "flash_attention": set(),
-                "flash_decode": set()}
+                "flash_decode": set(), "flash_attention_bwd": set()}
     errs, main = [], None
     for case, shape, dtype, kind, offset in rmsnorm_cases():
         prefill = kind == "prefill"
@@ -987,6 +1192,7 @@ def check_kernels() -> dict:
         main_bwd, max_abs_err=max(e for e, _ in bwd_errs),
         max_rel_err=max(r for _, r in bwd_errs),
         train_shapes=bwd_train_shapes)
+    results["flash_attention_bwd"] = check_flash_bwd(launched)
     check_kernel_attrs(launched)
     return results
 
@@ -1194,10 +1400,10 @@ def check_kernel_grads() -> dict:
     """Phase 2's gradient check: each op's backward against autograd
     through the plain version itself, both on the card, at the serve
     paths' shapes and the forward's tolerance.  Each op's forward must
-    launch its kernel once; RG-LRU's backward must launch its backward
-    kernel once, the others' backwards (plain formulas) none.  Returns each
-    kernel's max abs gradient error (RG-LRU's under both of its kernels'
-    names)."""
+    launch its kernel once; RG-LRU's and flash attention's backwards must
+    each call their backward kernels once, the others' backwards (plain
+    formulas) none.  Returns each kernel's max abs gradient error (RG-LRU's
+    and flash attention's under both of their kernels' names)."""
     import torch
     import torch.nn.functional as F
 
@@ -1220,9 +1426,12 @@ def check_kernel_grads() -> dict:
     cl = torch.tensor(129, dtype=torch.int32, device=dev)
     rows = BATCH * PROMPT_LEN
     d_rnn = 2560
-    # (kernel, case, op, plain, inputs, tol): bf16 at the forward's 2e-2
-    # (flash decode: one bf16 ulp of the largest gradient), RG-LRU fp32 at
-    # 1e-4
+    # (kernel, case, op, plain, inputs, tol): bf16 at the forward's 2e-2;
+    # flash attention, whose backward is its kernels, at two bf16 ulps of
+    # the largest gradient (both sides round each gradient to bf16 once;
+    # the kernel's bf16 P and dS operands add the rest: one ulp, 0.0625 of
+    # a largest gradient of ~11, on an H100); flash decode at one ulp;
+    # RG-LRU fp32 at 1e-4
     cases = [
         ("rmsnorm", "rows(B*S,4096)", rn_ops, lambda x, w: rn_ops.rmsnorm(
             x, w, 1e-6), lambda x, w: rmsnorm_ref(x, w, 1e-6),
@@ -1231,7 +1440,9 @@ def check_kernel_grads() -> dict:
          lambda q, k, v: fa_ops.attend(q, k, v, causal=True),
          lambda q, k, v: attention_ref(q, k, v, causal=True),
          [randn(BATCH, PROMPT_LEN, 32, 128), randn(BATCH, PROMPT_LEN, 8, 128),
-          randn(BATCH, PROMPT_LEN, 8, 128)], 2e-2),
+          randn(BATCH, PROMPT_LEN, 8, 128)],
+         lambda want: 2 * torch.finfo(bf16).eps * max(
+             w.abs().max().item() for w in want)),
         ("flash_decode", f"cache_len 129 L{slots}", fd_ops,
          lambda q, k, v: fd_ops.decode_attend(q, k, v, cl),
          lambda q, k, v: decode_ref(q, k, v, cl),
@@ -1261,7 +1472,7 @@ def check_kernel_grads() -> dict:
         torch.cuda.synchronize()
         n = (mod.launches - before[0],
              getattr(mod, "bwd_launches", 0) - before[1])
-        want_n = (1, 1 if name == "rglru" else 0)
+        want_n = (1, 1 if name in ("rglru", "flash_attention") else 0)
         if n != want_n:
             fail(f"{name} {case}: the forward launched its kernel {n[0]} "
                  f"times and the backward its kernel {n[1]} times, not "
@@ -1270,6 +1481,8 @@ def check_kernel_grads() -> dict:
         if tol is None:
             tol = torch.finfo(bf16).eps * max(w.abs().max().item()
                                               for w in want)
+        elif callable(tol):
+            tol = tol(want)
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         finite = all(bool(torch.isfinite(g).all()) for g in got)
         log(f"[grad] {name} {case}: max_abs_err {err:.3e} over "
@@ -1281,6 +1494,7 @@ def check_kernel_grads() -> dict:
                  f"version's: {err} > {tol}")
         errs[name] = max(errs.get(name, 0.0), err)
     errs["rglru_bwd"] = errs["rglru"]
+    errs["flash_attention_bwd"] = errs["flash_attention"]
     # the backwards ran on autograd's device thread, whose cuBLAS handle
     # keeps a workspace of its own (32 MiB on Hopper) for the life of the
     # process; free it, so that the serve phase's peak memory is what a
@@ -1294,17 +1508,21 @@ def check_kernel_grads() -> dict:
 def check_kernel_attrs(launched: dict) -> None:
     """Registers and local memory (spills) a thread of every kernel instance
     the kernel phase launched, as the CUDA runtime reports them: RMSNorm by
-    (dtype, width, plan), flash attention by (dtype, head dim), flash
-    decode's split kernel by (q dtype, cache dtype) and its combine by q
-    dtype, RG-LRU's three kernels (forward walk and split, backward).  Any
-    local memory fails the run."""
+    (dtype, width, plan), flash attention by (dtype, head dim) (bf16/f16:
+    the serving instance and the one that writes lse) and its four
+    backward kernels by (dtype, head dim), flash decode's split kernel by
+    (q dtype, cache dtype) and its combine by q dtype, RG-LRU's three
+    kernels (forward walk and split, backward).  Any local memory fails
+    the run."""
     import ctypes
+
+    import torch
 
     from repro_torch.kernels import build
     from repro_torch.kernels.rmsnorm import ops as rn_ops
 
     code, name_of = build.DTYPE_CODES, lambda dt: str(dt).split(".")[-1]
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 8)()
     rows = []
     for dtype, d, plan in sorted(launched["rmsnorm"], key=str):
         build.check("rmsnorm", build.library("rmsnorm").repro_rmsnorm_attrs(
@@ -1318,6 +1536,16 @@ def check_kernel_attrs(launched: dict) -> None:
                 code[dtype], dh, ctypes.addressof(out)))
         rows.append((f"flash_attention {name_of(dtype)} dh{dh}", out[0],
                      out[1]))
+        if dtype != torch.float32:
+            rows.append((f"flash_attention {name_of(dtype)} dh{dh} with lse",
+                         out[2], out[3]))
+    for dtype, dh in sorted(launched["flash_attention_bwd"], key=str):
+        build.check("flash_attention", build.library(
+            "flash_attention").repro_flash_attention_bwd_attrs(
+                code[dtype], dh, ctypes.addressof(out)))
+        for i, part in enumerate(("prep", "dK/dV", "dQ", "partial sums")):
+            rows.append((f"flash_attention_bwd {part} {name_of(dtype)} "
+                         f"dh{dh}", out[2 * i], out[2 * i + 1]))
     for qdt, kvdt in sorted(launched["flash_decode"], key=str):
         build.check("flash_decode", build.library(
             "flash_decode").repro_flash_decode_attrs(
@@ -1354,7 +1582,8 @@ def expected_launches(cfg, steps: int) -> dict:
     norms = 2 * n + 1 + (2 * n_attn if cfg.qk_norm else 0)
     return {"rmsnorm": (1 + steps) * norms, "flash_attention": n_attn,
             "flash_decode": steps * n_attn, "flash_decode_partial": 0,
-            "rglru": (1 + steps) * n_rec, "rglru_bwd": 0}
+            "rglru": (1 + steps) * n_rec, "rglru_bwd": 0,
+            "flash_attention_bwd": 0}
 
 
 def _clone(tree):
@@ -2163,9 +2392,9 @@ def expected_train_launches(cfg, tcfg) -> dict:
     tail layers or the final norm.  Two RMSNorms a layer (norm1, norm2),
     two more an attention layer with qk-norm, one flash attention an
     attention layer, one RG-LRU scan a recurrent layer, and the final
-    norm.  Of the backwards only RG-LRU's is a kernel: one launch a
-    recurrent layer (the recomputed forward's; the first forward of a
-    checkpointed layer keeps no graph)."""
+    norm.  Of the backwards RG-LRU's and flash attention's are kernels:
+    one call a recurrent or attention layer (the recomputed forward's; the
+    first forward of a checkpointed layer keeps no graph)."""
     a = max(1, tcfg.microbatches)
     qk = 2 if cfg.qk_norm else 0
     if cfg.family == "hybrid":
@@ -2173,12 +2402,13 @@ def expected_train_launches(cfg, tcfg) -> dict:
         nt = cfg.n_layers - 3 * ns
         norms = 2 * ns * (6 + qk) + 2 * nt + 1
         counts = {"rmsnorm": norms, "flash_attention": 2 * ns,
-                  "rglru": 2 * 2 * ns + nt, "rglru_bwd": 2 * ns + nt}
+                  "rglru": 2 * 2 * ns + nt, "rglru_bwd": 2 * ns + nt,
+                  "flash_attention_bwd": ns}
     else:
         r = 1 if tcfg.remat == "none" else 2
         counts = {"rmsnorm": r * cfg.n_layers * (2 + qk) + 1,
                   "flash_attention": r * cfg.n_layers, "rglru": 0,
-                  "rglru_bwd": 0}
+                  "rglru_bwd": 0, "flash_attention_bwd": cfg.n_layers}
     return dict({k: a * v for k, v in counts.items()}, flash_decode=0,
                 flash_decode_partial=0)
 
@@ -2212,8 +2442,8 @@ def lm_train_flops(model, tcfg) -> float:
 
 def timed_backwards(fn) -> tuple:
     """One call of ``fn`` (a train step) with a CUDA event pair around
-    every call of the plain attention backward (``attention_bwd``) and of
-    the RG-LRU backward kernel's wrapper (``_launch_bwd``) inside it.
+    every call of the attention and the RG-LRU backward kernels' wrappers
+    (each module's ``_launch_bwd``) inside it.
     Returns the step's wall ms (host clock, ending in a synchronize) and,
     by backward, its calls and the device ms between its events, summed:
     the time each backward held the stream in this step, the gaps the host
@@ -2239,9 +2469,9 @@ def timed_backwards(fn) -> tuple:
         return call
 
     torch.cuda.synchronize()
-    with mock.patch.object(fa_ops, "attention_bwd",
+    with mock.patch.object(fa_ops, "_launch_bwd",
                            timed(BWD_NAMES["attention"],
-                                 fa_ops.attention_bwd)), \
+                                 fa_ops._launch_bwd)), \
             mock.patch.object(rg_ops, "_launch_bwd",
                               timed(BWD_NAMES["rglru"], rg_ops._launch_bwd)):
         t0 = time.perf_counter()
@@ -2254,7 +2484,7 @@ def timed_backwards(fn) -> tuple:
 
 
 # what each backward timed inside a step is
-BWD_NAMES = {"attention": "attention plain backward",
+BWD_NAMES = {"attention": "attention backward kernels",
              "rglru": "rglru backward kernel"}
 
 
@@ -2267,8 +2497,8 @@ def run_lm_train(arch: str) -> dict:
     step with each kernel launch replaced by its plain version, held
     against the kernels' first step;
     that state's next step under torch.profiler; the backwards' share of
-    the step after it (attention's plain formula, RG-LRU's kernel), timed
-    inside it; the step's bf16 FLOP bound.  Returns the
+    the step after it (attention's and RG-LRU's kernels), timed inside it;
+    the step's bf16 FLOP bound.  Returns the
     launch counts and the numbers for the JSON line."""
     from unittest import mock
 
@@ -2277,7 +2507,8 @@ def run_lm_train(arch: str) -> dict:
     from repro_torch import configs
     from repro_torch.data import SyntheticLMData
     from repro_torch.kernels.flash_attention import ops as fa_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_bwd_from_lse, attention_lse, attention_ref)
     from repro_torch.kernels.rglru import ops as rg_ops
     from repro_torch.kernels.rglru.ref import rglru_ref
     from repro_torch.kernels.rmsnorm import ops as rn_ops
@@ -2330,8 +2561,11 @@ def run_lm_train(arch: str) -> dict:
     torch.cuda.empty_cache()
 
     # the first step again from the same start, each kernel launch replaced
-    # by its plain version: RG-LRU's backward kernel by rglru_bwd (the
-    # other ops' backward formulas are the same ones)
+    # by its plain version: the backward kernels by rglru_bwd and
+    # attention_bwd_from_lse, their arithmetic in plain PyTorch (a custom
+    # op's implementation runs below autograd, so autograd through
+    # attention_ref cannot run there; the other ops' backward formulas are
+    # the same ones)
     t0 = time.perf_counter()
     state = init_train_state(model, ocfg, 0, device="cuda")
     step = make_train_step(model, ocfg, tcfg, Sharder())
@@ -2339,9 +2573,16 @@ def run_lm_train(arch: str) -> dict:
                            global_batch=LM_BATCH, seed=0)
     with mock.patch.object(rn_ops, "_launch", lambda x, w, eps, plan=None:
                            rmsnorm_ref(x, w, eps)), \
-            mock.patch.object(fa_ops, "_launch", lambda q, k, v, c, w, o:
-                              attention_ref(q, k, v, causal=c, window=w,
-                                            q_offset=o)), \
+            mock.patch.object(fa_ops, "_launch_lse", lambda q, k, v, c, w, o:
+                              (attention_ref(q, k, v, causal=c, window=w,
+                                             q_offset=o),
+                               attention_lse(q, k, causal=c, window=w,
+                                             q_offset=o))), \
+            mock.patch.object(fa_ops, "_launch_bwd",
+                              lambda do, q, k, v, out, lse, c, w, o:
+                              attention_bwd_from_lse(do, q, k, v, out, lse,
+                                                     causal=c, window=w,
+                                                     q_offset=o)), \
             mock.patch.object(rg_ops, "_launch", rglru_ref), \
             mock.patch.object(rg_ops, "_launch_bwd", rg_ops._plain_bwd):
         _, met = step(state, data.batch_at(0, "cuda"))
@@ -3059,12 +3300,13 @@ def run_cli(captures: dict, traces: dict, prefill: dict) -> None:
 
 
 # the run whose counts a kernel's ``launches`` reads: the serve paths, as
-# since the port's first slice; RG-LRU's backward kernel, which no serve path
+# since the port's first slice; the backward kernels, which no serve path
 # launches, the lm-train phase
-MAIN_PATH = {"rglru_bwd": "lm-train"}
+MAIN_PATH = {"rglru_bwd": "lm-train", "flash_attention_bwd": "lm-train"}
 
-# (source, what it replaces): RG-LRU's backward kernel replaces no Pallas
-# kernel; the reference differentiates its associative scan with XLA
+# (source, what it replaces): the backward kernels replace no Pallas
+# kernel; the reference differentiates its associative scan and its
+# chunked attention with XLA
 KERNEL_META = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm/kernel.py:19"),
@@ -3076,6 +3318,8 @@ KERNEL_META = {
               "src/repro/kernels/rglru/kernel.py:24"),
     "rglru_bwd": ("src/repro_torch/kernels/csrc/rglru.cu",
                   "src/repro/kernels/rglru/ops.py:47"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/ops.py:24"),
 }
 
 

@@ -10,13 +10,15 @@ hook over every aten (and custom) op that reaches the dispatcher:
   has one (``mm``, ``addmm``, ``bmm``, ``baddbmm``, convolutions and their
   backward, ...).  The port's four kernel ops get formulas below that
   count what the reference's CPU HLO counts for the same call: flash
-  attention the reference's ``chunked_attention`` (full ``Sq x Skv`` score
-  blocks -- masks remove no dot work -- or, with a window and more than one
-  512-row query chunk, ``window + 512`` keys a chunk), flash decode the
-  whole cache (``decode_attention``), RMSNorm and the RG-LRU scan nothing
-  (no dot).  The xLSTM ops (no kernel behind them) count what the
+  attention, with or without its lse, the reference's ``chunked_attention``
+  (full ``Sq x Skv`` score blocks -- masks remove no dot work -- or, with a
+  window and more than one 512-row query chunk, ``window + 512`` keys a
+  chunk), flash decode the whole cache (``decode_attention``), RMSNorm
+  and the RG-LRU scan nothing (no dot).  The xLSTM ops (no kernel behind them) count what the
   reference's HLO does: the mLSTM parallel form every (query, key) pair,
-  the sLSTM loop its recurrent products times its trip count.  Eager code runs every loop iteration, so trip counts come for
+  the sLSTM loop its recurrent products times its trip count.  Flash
+  attention's backward op counts what the plain backward it replaces
+  counts.  Eager code runs every loop iteration, so trip counts come for
   free.
 * **bytes** -- each op's tensor inputs plus its tensor outputs, once each:
   the traffic of the eager run, which fuses nothing.  View ops (whose
@@ -73,7 +75,8 @@ _NO_TRAFFIC = {
 }
 
 
-@register_flop_formula(torch.ops.repro_torch.flash_attention)
+@register_flop_formula([torch.ops.repro_torch.flash_attention,
+                        torch.ops.repro_torch.flash_attention_lse])
 def flash_attention_flop(q_shape, k_shape, v_shape, causal=True, window=0,
                          q_offset=0, *args, out_shape=None, **kwargs) -> int:
     """``4·B·H·Sq·Skv·dh`` (the score and the value products), with
@@ -84,6 +87,17 @@ def flash_attention_flop(q_shape, k_shape, v_shape, causal=True, window=0,
     if sq > Q_CHUNK and window > 0 and skv > window + Q_CHUNK:
         skv = window + Q_CHUNK
     return 4 * b * h * sq * skv * dh
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+def flash_attention_bwd_flop(do_shape, q_shape, k_shape, *args,
+                             out_shape=None, **kwargs) -> int:
+    """``12·B·H·Sq·Skv·dh``: what the plain backward (``attention_bwd``:
+    the recomputed score and value products and the four gradient
+    products, full score blocks) counts, so that a capture counts the same
+    whichever backward its tensors take."""
+    b, sq, h, dh = q_shape
+    return 12 * b * h * sq * k_shape[1] * dh
 
 
 @register_flop_formula(torch.ops.repro_torch.flash_decode)
@@ -251,7 +265,7 @@ class OpCostMode(TorchDispatchMode):
         return self.counter.cost()
 
 
-__all__ = ["OpCostMode", "OpCounter", "Q_CHUNK", "flash_attention_flop",
-           "flash_decode_flop", "flash_decode_partial_flop",
-           "in_sharding_propagation", "mlstm_parallel_bwd_flop",
+__all__ = ["OpCostMode", "OpCounter", "Q_CHUNK", "flash_attention_bwd_flop",
+           "flash_attention_flop", "flash_decode_flop",
+           "flash_decode_partial_flop", "in_sharding_propagation", "mlstm_parallel_bwd_flop",
            "mlstm_parallel_flop", "slstm_scan_bwd_flop", "slstm_scan_flop"]

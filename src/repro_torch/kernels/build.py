@@ -40,8 +40,11 @@ SIGNATURES = {
         "repro_rmsnorm_attrs": [_I] * 5 + [_P],
     },
     "flash_attention": {
-        "repro_flash_attention": [_P] * 4 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+        "repro_flash_attention": [_P] * 5 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+        "repro_flash_attention_bwd": [_P] * 11 + [_I] * 6 + [_F] + [_I] * 5
+        + [_P],
         "repro_flash_attention_attrs": [_I, _I, _P],
+        "repro_flash_attention_bwd_attrs": [_I, _I, _P],
     },
     "flash_decode": {
         "repro_flash_decode": [_P] * 7 + [_I] * 7 + [_F] + [_I] * 5 + [_P],

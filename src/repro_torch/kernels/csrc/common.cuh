@@ -20,6 +20,10 @@ enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 // the softmax in base 2 (exp(x - m) = 2^(x log2 e - m log2 e)), since exp2f
 // is one hardware instruction and expf is several.
 #define LOG2E_F 1.4426950408889634f
+// ln(2): a base-2 log-sum-exp times it is the base-e one.
+#define LN2_F 0.6931471805599453f
+// -inf: the log-sum-exp of a row that sees no key.
+#define NEG_INFINITY_F (-__int_as_float(0x7f800000))
 
 template <typename T> __device__ __forceinline__ float to_f(T v);
 template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }

@@ -24,12 +24,26 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// The same on the host, where a launch picks its loads.
+inline bool aligned16_host(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
 // Copy 16 bytes from global to shared memory, bypassing L1.  The first
 // src_bytes (0 or 16) are read; the rest of the 16 are zero-filled, so a
 // row past the end of a tensor is written as zeros without being read.
 __device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
                                             int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
+               "l"(gmem), "r"(src_bytes));
+}
+
+// The same for one 4-byte word (src_bytes 0 or 4), through L1: an fp32
+// value with no 16-byte alignment to rely on.
+__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem,
+                                           int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(smem)),
                "l"(gmem), "r"(src_bytes));
 }

@@ -86,14 +86,6 @@ constexpr int WALK_THREADS = 256;  // the walk: threads (channels) a CTA
 constexpr int UNROLL = 8;          // the walk: steps of loads in flight
 enum Variant : int { kWalk = 0, kSplit = 1 };   // ops.VARIANTS
 
-// Copy 4 bytes from global to shared memory; src_bytes 0 zero-fills.
-__device__ __forceinline__ void cp_async_4(void* smem, const void* gmem,
-                                           int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(src_bytes));
-}
-
 // Shared memory of a CTA, in floats: the staged tiles (two buffers when
 // the sequence takes more than one round), then each warp's (P, H) and
 // carry, then the CTA's (P, H) a round parity, which the cluster reads.
@@ -385,10 +377,6 @@ rglru_fwd_walk_kernel(const float* __restrict__ x,
     h = __fadd_rn(__fmul_rn(expf(log_a[off]), h), x[off]);
     out[off] = h;
   }
-}
-
-bool aligned16_host(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 // Dynamic shared memory of a split launch, in bytes.

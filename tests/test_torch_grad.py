@@ -12,7 +12,9 @@ output cotangents are made with numpy from a seed.
 Tolerances (absolute, on gradients scaled to ~1):
 
 * ops: ``2e-5`` -- fp32 sums in other orders (XLA's chunked attention and
-  associative scan against the port's full softmax and sequential scan);
+  associative scan against the port's full softmax and sequential scan;
+  attention's backward from the saved log-sum-exp against autograd
+  through the softmax);
 * models: ``1e-4`` -- the same, compounded over the layers, the embedding
   and the LM head, on gradients of a fixed cotangent of the last-token
   logits.
@@ -40,6 +42,10 @@ from repro.models import build_model as ref_build_model
 from repro.parallel import Sharder as RefSharder
 from repro_torch import configs
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import (attention_bwd,
+                                                     attention_bwd_from_lse,
+                                                     attention_lse,
+                                                     attention_ref, visible)
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.rglru import ops as rg_ops
 from repro_torch.kernels.rmsnorm import ops as rn_ops
@@ -99,6 +105,105 @@ def test_flash_attention_grad(case):
     got = _port_grads(lambda *t: fa_ops.attend(*t, **kw), [q, k, v], do)
     want = _jax_grads(lambda *t: jax_attend(*t, **kw), [q, k, v], do)
     _assert_close(got, want, OP_TOL)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward from the forward's lse: the CUDA kernels'
+# algorithm in plain PyTorch (``ref.attention_lse``,
+# ``ref.attention_bwd_from_lse``) and the custom ops that carry it
+# ---------------------------------------------------------------------------
+LSE_CASES = [
+    dict(sq=16, skv=16, h=4, kvh=2, causal=True, window=0, q_offset=0),
+    dict(sq=16, skv=16, h=4, kvh=4, causal=True, window=5, q_offset=0),
+    dict(sq=8, skv=24, h=4, kvh=1, causal=True, window=0, q_offset=16),
+    dict(sq=12, skv=12, h=2, kvh=2, causal=False, window=0, q_offset=0),
+    dict(sq=13, skv=21, h=8, kvh=2, causal=False, window=0, q_offset=0),
+    dict(sq=10, skv=12, h=4, kvh=2, causal=True, window=4, q_offset=6),
+    # rows at positions 10-17 see no key of 8 within a window of 3
+    dict(sq=12, skv=8, h=4, kvh=2, causal=True, window=3, q_offset=6),
+]
+LSE_IDS = ["gqa", "mha-window", "mqa-q_offset", "bidirectional",
+           "ragged-bidirectional", "window-q_offset", "rows-see-no-key"]
+
+
+def _lse_inputs(case, seed):
+    """q, k, v and a cotangent, the cotangent's rows that see no key set
+    to 0 (the plain and the reference versions give such a row the uniform
+    softmax, the kernels nothing), the bool of rows that see one, and the
+    op's keyword arguments."""
+    b, dh = 2, 16
+    q, k, v, do = _arrays(seed, (b, case["sq"], case["h"], dh),
+                          (b, case["skv"], case["kvh"], dh),
+                          (b, case["skv"], case["kvh"], dh),
+                          (b, case["sq"], case["h"], dh))
+    kw = {key: case[key] for key in ("causal", "window", "q_offset")}
+    seen = visible(case["sq"], case["skv"], **kw).any(-1).numpy()
+    do[:, ~seen] = 0.0
+    return q, k, v, do, seen, kw
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=LSE_IDS)
+def test_attention_lse_matches_reference_scores(case):
+    """Each row's log-sum-exp of its visible scaled scores against JAX's
+    ``logsumexp`` over the reference's masked scores; -inf where a row
+    sees no key."""
+    q, k, _, _, seen, kw = _lse_inputs(case, 11)
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = jnp.asarray(q).reshape(b, sq, kvh, h // kvh, dh) * dh ** -0.5
+    s = jnp.einsum("bqkgd,bskd->bkgqs", qg, jnp.asarray(k))
+    mask = jnp.asarray(visible(sq, case["skv"], **kw).numpy())
+    want = np.asarray(jax.nn.logsumexp(jnp.where(mask, s, -jnp.inf),
+                                       axis=-1)).reshape(b, h, sq)
+    got = attention_lse(torch.from_numpy(q), torch.from_numpy(k),
+                        **kw).numpy()
+    assert got.dtype == np.float32 and got.shape == (b, h, sq)
+    assert np.array_equal(np.isneginf(got), np.isneginf(want))
+    assert np.isneginf(got).any(axis=(0, 1)).tolist() == (~seen).tolist()
+    np.testing.assert_allclose(got[:, :, seen], want[:, :, seen], rtol=0,
+                               atol=OP_TOL)
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=LSE_IDS)
+def test_attention_bwd_from_lse_matches_plain_and_reference(case):
+    """The kernels' algorithm (P from the saved lse, ``D = rowsum(dO *
+    O)``, the GQA sums) against autograd through the plain version and
+    ``jax.vjp`` of the reference, in fp32; a row that sees no key gets a
+    zero dq whatever its cotangent, and adds nothing to dk and dv."""
+    q, k, v, do, seen, kw = _lse_inputs(case, 12)
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o = attention_ref(tq, tk, tv, **kw)
+    lse = attention_lse(tq, tk, **kw)
+    got = [g.numpy() for g in attention_bwd_from_lse(tdo, tq, tk, tv, o,
+                                                     lse, **kw)]
+    plain = [g.numpy() for g in attention_bwd(tdo, tq, tk, tv, **kw)]
+    want = _jax_grads(lambda *t: jax_attend(*t, **kw), [q, k, v], do)
+    _assert_close(got, plain, OP_TOL)
+    _assert_close(got, want, OP_TOL)
+    noisy = tdo.clone()
+    noisy[:, ~torch.from_numpy(seen)] = 1.0
+    again = attention_bwd_from_lse(noisy, tq, tk, tv, o, lse, **kw)
+    assert not again[0][:, ~torch.from_numpy(seen)].any()
+    assert all(torch.equal(a, torch.from_numpy(g))
+               for a, g in zip(again[1:], got[1:]))
+
+
+@pytest.mark.parametrize("case", LSE_CASES, ids=LSE_IDS)
+def test_flash_attention_grad_through_backward_op(case, monkeypatch):
+    """``attend`` on the card's route (``kernel_backward`` true: the
+    forward op with lse, its autograd formula the backward op, whose CPU
+    branch is ``attention_bwd_from_lse``) against ``jax.vjp`` of the
+    reference; no kernel counter moves on the CPU."""
+    monkeypatch.setattr(fa_ops, "kernel_backward", lambda q: True)
+    q, k, v, do, _, kw = _lse_inputs(case, 13)
+    before = (fa_ops.launches, fa_ops.bwd_launches)
+    ts = [torch.from_numpy(a.copy()).requires_grad_() for a in (q, k, v)]
+    out = fa_ops.attend(*ts, **kw)
+    assert "flash_attention_lse" in type(out.grad_fn).__name__
+    out.backward(torch.from_numpy(do))
+    want = _jax_grads(lambda *t: jax_attend(*t, **kw), [q, k, v], do)
+    _assert_close([t.grad.numpy() for t in ts], want, OP_TOL)
+    assert (fa_ops.launches, fa_ops.bwd_launches) == before
 
 
 @pytest.mark.parametrize("cache_len,window", [(9, 0), (20, 0), (20, 6),
@@ -233,6 +338,20 @@ def _model_grads(arch, n_layers):
                                            ("recurrentgemma_2b", 3),
                                            ("recurrentgemma_2b", 4)])
 def test_lm_parameter_grads_match_reference(arch, n_layers):
+    _assert_lm_grads(arch, n_layers)
+
+
+@pytest.mark.parametrize("arch,n_layers", [("qwen3_8b", 2),
+                                           ("recurrentgemma_2b", 3)])
+def test_lm_parameter_grads_through_the_attention_backward_op(
+        arch, n_layers, monkeypatch):
+    """The same, attention on the card's route (the forward op with lse
+    and the backward op, plain on the CPU)."""
+    monkeypatch.setattr(fa_ops, "kernel_backward", lambda q: True)
+    _assert_lm_grads(arch, n_layers)
+
+
+def _assert_lm_grads(arch, n_layers):
     rgrads, pparams = _model_grads(arch, n_layers)
     flat = jax.tree_util.tree_leaves_with_path(rgrads)
     assert len(flat) == len(list(_leaves(pparams)))

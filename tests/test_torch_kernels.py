@@ -144,6 +144,23 @@ class TestFlashAttention:
         assert _err(ref, fa_ops.attend(qt, kt, vt, window=window)) < 2e-5
 
 
+class TestFlashAttentionBackwardPlan:
+    """``ops.bwd_head_split``: CTAs that share a kv tile's query heads in
+    the dK/dV kernel, on a card of 132 SMs (the H100's)."""
+
+    @pytest.mark.parametrize("b,skv,kvh,group,want", [
+        (4, 1024, 8, 4, 1),     # Granite-3-2B's training call: 512 CTAs
+        (1, 1024, 8, 4, 4),     # Qwen3-8B's at batch 1: 128, 3 -> 4
+        (1, 1024, 1, 10, 10),   # RecurrentGemma-2B's MQA: 16, one a head
+        (1, 1024, 1, 48, 24),   # Granite-20B's MQA: 17 -> a divisor, 24
+        (2, 256, 1, 48, 48),    # 8 CTAs: one a head
+        (8, 128, 8, 4, 4),      # 8 x 128 tokens: 128 CTAs, 3 -> 4
+    ])
+    def test_plan(self, b, skv, kvh, group, want):
+        got = fa_ops.bwd_head_split(b, skv, kvh, group, 132)
+        assert got == want and group % got == 0
+
+
 class TestFlashDecode:
     @pytest.mark.parametrize("b,h,kvh,dh,L,clen,win", [
         (2, 4, 2, 64, 256, 100, 0),     # GQA, partial cache
@@ -247,6 +264,10 @@ class TestWrappers:
         return {
             "rmsnorm": lambda: rn_ops._launch(x, torch.ones(8), 1e-6),
             "flash_attention": lambda: fa_ops._launch(q, kv, kv, True, 0, 0),
+            "flash_attention_lse": lambda: fa_ops._launch_lse(q, kv, kv, True,
+                                                              0, 0),
+            "flash_attention_bwd": lambda: fa_ops._launch_bwd(
+                q, q, kv, kv, q, torch.zeros(1, 2, 4), True, 0, 0),
             "flash_decode": lambda: fd_ops._launch(q[:, 0], kv, kv, cl, 0),
             "flash_decode_partial": lambda: fd_ops._launch(
                 q[:, 0], kv, kv, cl, 0, 4, 8, torch.empty(1, 2)),
@@ -257,10 +278,14 @@ class TestWrappers:
 
     @pytest.mark.parametrize("name", ["rmsnorm", "flash_attention",
                                       "flash_decode", "flash_decode_partial",
-                                      "rglru", "rglru_bwd"])
+                                      "rglru", "rglru_bwd",
+                                      "flash_attention_lse",
+                                      "flash_attention_bwd"])
     def test_launch_without_toolkit_raises(self, no_toolkit, name):
         mod, attr = {"rmsnorm": (rn_ops, "launches"),
                      "flash_attention": (fa_ops, "launches"),
+                     "flash_attention_lse": (fa_ops, "launches"),
+                     "flash_attention_bwd": (fa_ops, "bwd_launches"),
                      "flash_decode": (fd_ops, "launches"),
                      "flash_decode_partial": (fd_ops, "partial_launches"),
                      "rglru": (rg_ops, "launches"),
@@ -292,12 +317,40 @@ class TestWrappers:
         assert all(name.startswith("repro_") for fns in
                    build.SIGNATURES.values() for name in fns)
 
+    @pytest.mark.parametrize("name", build.SOURCES)
+    def test_signatures_match_every_entry_point(self, name):
+        """Every ``extern "C"`` function of ``csrc/<name>.cu`` (but the
+        error string every library shares, set at load) has its ctypes
+        signature in ``build.SIGNATURES``, argument for argument: a pointer
+        as ``c_void_p``, an ``int`` as ``c_int``, a ``long long`` as
+        ``c_longlong``, a ``float`` as ``c_float``."""
+        import ctypes
+        import re
+
+        kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+                 "long long": ctypes.c_longlong}
+        text = (build.CSRC / f"{name}.cu").read_text()
+        found = {}
+        for fn, params in re.findall(
+                r'extern "C" int (repro_\w+)\(([^)]*)\)', text):
+            found[fn] = [ctypes.c_void_p if "*" in p else
+                         kinds[" ".join(p.split()[:-1])]
+                         for p in params.split(",")]
+        assert found == build.SIGNATURES[name]
+
     def test_cpu_calls_do_not_count(self):
         mods = (rn_ops, fa_ops, fd_ops, rg_ops)
         before = [m.launches for m in mods]
+        bwd_before = fa_ops.bwd_launches
         rn_ops.rmsnorm(torch.ones(2, 8), torch.ones(8))
         fa_ops.attend(torch.ones(1, 4, 2, 8), torch.ones(1, 4, 1, 8),
                       torch.ones(1, 4, 1, 8))
+        # the backward op's CPU branch, as the card's route calls it
+        q = torch.ones(1, 4, 2, 8, requires_grad=True)
+        fa_ops._flash_attention_lse(q, torch.ones(1, 4, 1, 8),
+                                    torch.ones(1, 4, 1, 8), True, 0,
+                                    0)[0].sum().backward()
+        assert q.grad is not None and fa_ops.bwd_launches == bwd_before
         fd_ops.decode_attend(torch.ones(1, 2, 8), torch.ones(1, 4, 1, 8),
                              torch.ones(1, 4, 1, 8),
                              torch.tensor(2, dtype=torch.int32))

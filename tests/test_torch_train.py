@@ -53,6 +53,7 @@ from repro.train.train import init_train_state as ref_init_state
 from repro.train.train import make_train_step as ref_make_step
 from repro_torch import configs
 from repro_torch.data import SyntheticLMData, host_transfer_log
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import build_model, common, layers
 from repro_torch.models.common import tree_leaves
 from repro_torch.optim import OptConfig, init_opt_state
@@ -355,24 +356,28 @@ def test_lm_data_is_the_reference_bit_for_bit(seed, host, num_hosts):
 # kernel launches of a train step
 # ---------------------------------------------------------------------------
 class _OpCount(TorchDispatchMode):
-    """Calls of the kernel ops a train step makes, RG-LRU's backward op
+    """Calls of the kernel ops a train step makes, the backward ops
     included (on the CPU they run their plain versions; on the card each
-    call is one launch)."""
+    call is one kernel call).  Flash attention's forward counts under
+    either of its ops (with or without the lse)."""
 
-    OPS = {"rmsnorm": "repro_torch.rmsnorm.default",
-           "flash_attention": "repro_torch.flash_attention.default",
-           "flash_decode": "repro_torch.flash_decode.default",
-           "flash_decode_partial": "repro_torch.flash_decode_partial.default",
-           "rglru": "repro_torch.rglru_scan.default",
-           "rglru_bwd": "repro_torch.rglru_scan_bwd.default"}
+    OPS = {"rmsnorm": ("repro_torch.rmsnorm.default",),
+           "flash_attention": ("repro_torch.flash_attention.default",
+                               "repro_torch.flash_attention_lse.default"),
+           "flash_decode": ("repro_torch.flash_decode.default",),
+           "flash_decode_partial": (
+               "repro_torch.flash_decode_partial.default",),
+           "rglru": ("repro_torch.rglru_scan.default",),
+           "rglru_bwd": ("repro_torch.rglru_scan_bwd.default",),
+           "flash_attention_bwd": ("repro_torch.flash_attention_bwd.default",)}
 
     def __init__(self):
         super().__init__()
         self.counts = dict.fromkeys(self.OPS, 0)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        for name, op in self.OPS.items():
-            if str(func) == op:
+        for name, ops in self.OPS.items():
+            if str(func) in ops:
                 self.counts[name] += 1
         return func(*args, **(kwargs or {}))
 
@@ -391,10 +396,14 @@ def _chip_smoke():
     ("qwen3_8b", dict(microbatches=1, remat="dots")),
     ("recurrentgemma_2b", dict(microbatches=2, remat="full")),
     ("recurrentgemma_2b", dict(microbatches=1, remat="none"))])
-def test_train_step_kernel_calls_equal_chip_smoke_expectation(arch, tcfg):
+def test_train_step_kernel_calls_equal_chip_smoke_expectation(
+        arch, tcfg, monkeypatch):
     """One reduced train step's kernel-op calls (recomputed forwards call
     again, per microbatch) equal ``chip_smoke.expected_train_launches``,
-    which the card's launch counters are held to."""
+    which the card's launch counters are held to.  Attention takes the
+    card's route, the backward kernels' ops (whose CPU branches are the
+    plain versions), as the card's bf16 tensors do."""
+    monkeypatch.setattr(fa_ops, "kernel_backward", lambda q: True)
     cfg = configs.config(arch, reduced=True)
     model, tcfg = build_model(cfg), TrainConfig(**tcfg)
     ocfg = OptConfig()
